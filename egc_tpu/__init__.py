@@ -1,13 +1,13 @@
-"""egc_tpu: a TPU-native graph neural network framework.
+"""egc_tpu: a graph neural network framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the EGC
-reference implementation (shyam196/egc — "Do We Need Anisotropic Graph
-Neural Networks?", ICLR 2022):
+A from-scratch JAX/XLA re-design of the capabilities of the EGC reference
+implementation (shyam196/egc — "Do We Need Anisotropic Graph Neural
+Networks?", ICLR 2022), run on the GPU:
 
-- Static-shape, pad-and-mask graph batching (TPU requires static shapes).
-- Fused multi-aggregator segment reductions (sum/mean/min/max/var/std/symnorm)
-  as one primitive — the paper's "aggregator fusion" realized on TPU, with a
-  pure-XLA reference path and Pallas kernels for the hot path.
+- Static-shape, pad-and-mask graph batching (XLA compiles one program per
+  shape).
+- Multi-aggregator segment reductions (sum/mean/min/max/var/std/symnorm)
+  as one primitive — the paper's "aggregator fusion".
 - The full EGC model family (EGC-S / EGC-M) plus GCN/GAT/GATv2/GIN/SAGE/
   towered-MPNN/PNA baselines and heterogeneous RGCN/REGC layers.
 - Batched mini-graph training (zinc/cifar/mol/code) and full-graph

@@ -1,7 +1,7 @@
 """Host-side batched graph loader with static padding budgets.
 
 Replaces the reference's PyG ``DataLoader(batch_size=...)`` (reference
-``experiments/zinc/configs.py:36-45``). TPU twist: every batch is padded to
+``experiments/zinc/configs.py:36-45``). Every batch is padded to
 the SAME (num_nodes, num_edges, num_graphs) budget so the train step compiles
 exactly once. The final short batch of an epoch is padded with empty graph
 slots rather than dropped (step-count parity with the reference's loader).
@@ -28,7 +28,7 @@ def padding_budget(
     Worst-case-exact for heavy-tailed size distributions: any batch of
     ``batch_size`` graphs is bounded by the ``batch_size`` LARGEST graphs
     (much tighter than batch_size * max for e.g. code2 ASTs), plus pad
-    slots, rounded to hardware-friendly multiples.
+    slots, rounded up to the given multiples.
     """
     node_counts = sorted(int(np.asarray(g["nodes"]).shape[0])
                          for g in graphs)
@@ -46,15 +46,9 @@ def padding_budget(
 class GraphLoader:
     """Iterates fixed-shape padded batches over a list of graph dicts.
 
-    With ``kernel_plans=True`` every batch carries a fused-Pallas kernel
-    plan (egc_tpu.ops.dispatch.build_kernel_plan) so convs take the TPU
-    fast path on batched tasks too, not just static full graphs. The
-    budget's node count must then be a multiple of ``plan_block`` —
-    ``padding_budget(..., node_multiple=plan_block)``. All plan arrays are
-    budget-static, so the jitted step still compiles once.
+    ``prefetch=N`` builds N batches ahead on a thread pool (host-side
+    numpy only), overlapping with the device step.
     """
-
-    PLAN_BLOCK = 512   # fwd/bwd block+window rows for per-batch plans
 
     def __init__(
         self,
@@ -65,7 +59,6 @@ class GraphLoader:
         seed: int = 0,
         budget: Optional[Tuple[int, int, int]] = None,
         drop_last: bool = False,
-        kernel_plans: bool = False,
         cache_limit_bytes: int = 4 << 30,
         prefetch: int = 0,
     ):
@@ -73,16 +66,8 @@ class GraphLoader:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)
-        self.budget = budget or padding_budget(
-            graphs, batch_size,
-            node_multiple=self.PLAN_BLOCK if kernel_plans else 8)
-        self.kernel_plans = kernel_plans
+        self.budget = budget or padding_budget(graphs, batch_size)
         self.prefetch = prefetch
-        if kernel_plans and self.budget[0] % self.PLAN_BLOCK:
-            raise ValueError(
-                f"kernel_plans needs node budget % {self.PLAN_BLOCK} == 0, "
-                f"got {self.budget[0]} (pass a padding_budget built with "
-                f"node_multiple={self.PLAN_BLOCK})")
         self.drop_last = drop_last
         # eval loaders iterate the identical batches every epoch: build once
         # — but only while under cache_limit_bytes (real code2's 452k padded
@@ -102,26 +87,6 @@ class GraphLoader:
         bn, be, bg = self.budget
         batch = [self.graphs[i] for i in idx]
         g, y = batch_np(batch, num_nodes=bn, num_edges=be, num_graphs=bg)
-        if self.kernel_plans:
-            from egc_tpu.ops.dispatch import build_kernel_plan
-            # keep_masked_edges keeps the plan's edge arrays
-            # budget-static while redirecting padded edges to a shadow
-            # block beyond the node budget, so they contribute exactly
-            # nothing to model rows in either pass (XLA-masked parity;
-            # conv_aggregate row-pads x up to plan.n_pad and slices).
-            # to_device=False: prefetch threads must not device-put; the
-            # consumer's tree.map(jnp.asarray) moves the batch at once
-            plan = build_kernel_plan(
-                np.asarray(g.senders), np.asarray(g.receivers), bn,
-                edge_mask=np.asarray(g.edge_mask),
-                keep_masked_edges=True,
-                fwd_block_rows=self.PLAN_BLOCK,
-                fwd_window_rows=self.PLAN_BLOCK,
-                bwd_block_rows=self.PLAN_BLOCK,
-                bwd_window_rows=self.PLAN_BLOCK,
-                bwd_narrow_window_rows=None, attention=False,
-                to_device=False)
-            g = g.replace(kernel_plan=plan)
         return (g, y)
 
     def _batches(self, order):

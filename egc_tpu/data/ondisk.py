@@ -68,6 +68,18 @@ def _parse_csv_bytes(data: bytes, dtype) -> np.ndarray:
                           dtype=dtype, ndmin=2)
 
 
+def _import_torch(what: str):
+    """torch, which only the real-dataset readers of torch-format files
+    need (the main path and the synthetic datasets do not)."""
+    try:
+        import torch
+    except ImportError as e:
+        raise ImportError(f"reading {what} needs torch, which is not "
+                          f"installed; the synthetic datasets (the "
+                          f"default, --synthetic) do not") from e
+    return torch
+
+
 def _read_csv_gz(path: Path, dtype=np.int64) -> np.ndarray:
     """Read a (gzipped) numeric CSV with an ``.npy`` sidecar cache: the
     first parse writes ``<file>.npy`` next to the source (best-effort) and
@@ -289,7 +301,7 @@ def load_cifar10_superpixels(root: Optional[Path] = None
     files, each a list of per-graph dicts/Data-likes with ``x`` [N,3]
     mean-color, ``pos`` [N,2], ``edge_index`` [2,E], ``y`` scalar class.
     """
-    import torch
+    torch = _import_torch("CIFAR10 superpixel .pt files")
 
     root = (root or data_location()) / "CIFAR10"
     raw = root / "raw"
@@ -324,7 +336,8 @@ def load_cifar10_superpixels(root: Optional[Path] = None
 
 def load_zinc(root: Optional[Path] = None, subset: bool = True
               ) -> Dict[str, List[dict]]:
-    import torch  # noqa: F401 — registers tensor classes for unpickling
+    # registers the tensor classes the pickles reference
+    _import_torch("ZINC raw pickles")
 
     root = (root or data_location()) / "ZINC"
     raw = root / "raw"

@@ -102,29 +102,21 @@ class SampledNodeLoader:
     """Yields padded subgraph batches (Graph, y, seed_mask) for node
     classification over seed splits.
 
-    ``kernel_plans=True``: each batch carries a budget-static fused-
-    kernel plan (same contract as GraphLoader) so the TPU step runs the
-    Pallas sweeps; the node budget rounds up to PLAN_BLOCK. Plan leaves
-    stay NUMPY here — the consumer's single ``jax.tree.map(jnp.asarray)``
-    moves the batch to the device (prefetch threads must not device-put).
-    ``prefetch=N``: batches (sampling + padding + plan build — all
-    host-side numpy) are built N ahead on a thread pool, overlapping with
-    the device step; per-batch rng streams are derived from the epoch
+    ``prefetch=N``: batches (sampling + padding — all host-side numpy)
+    are built N ahead on a thread pool, overlapping with the device
+    step; per-batch rng streams are derived from the epoch
     order so results are identical to the synchronous loader.
     ``gather_on_device=True``: graphs carry ZERO-WIDTH node features and
     each item appends the padded global-id array — the training step
     gathers rows from the device-resident full feature matrix
     (``x_full[gids]``), so the per-batch host->device transfer is the gid
-    list (KBs) instead of the gathered features (tens of MBs). This is
-    the production TPU path: feature bandwidth stays in HBM.
+    list (KBs) instead of the gathered features (tens of MBs).
     """
-
-    PLAN_BLOCK = 512
 
     def __init__(self, sampler: NeighborSampler, x: np.ndarray,
                  y: np.ndarray, seed_ids: np.ndarray, batch_size: int,
                  *, shuffle: bool = True, rng_seed: int = 0,
-                 kernel_plans: bool = False, prefetch: int = 0,
+                 prefetch: int = 0,
                  gather_on_device: bool = False):
         self.sampler = sampler
         self.x, self.y = x, y
@@ -134,11 +126,9 @@ class SampledNodeLoader:
         self.shuffle = shuffle
         self.rng_seed = rng_seed
         self._rng = np.random.default_rng(rng_seed)
-        self.kernel_plans = kernel_plans
         self.prefetch = prefetch
         n_budget, e_budget = sampler.budgets(batch_size)
-        nm = self.PLAN_BLOCK if kernel_plans else 8
-        self.node_budget = ((n_budget + nm - 1) // nm) * nm
+        self.node_budget = ((n_budget + 7) // 8) * 8
         self.edge_budget = ((e_budget + 127) // 128) * 128
         self._batch_counter = 0
 
@@ -156,19 +146,6 @@ class SampledNodeLoader:
         g = Graph.from_coo(nodes, s, r)
         g = pad_graph(g, num_nodes=self.node_budget,
                       num_edges=self.edge_budget)
-        if self.kernel_plans:
-            from egc_tpu.ops.dispatch import build_kernel_plan
-            plan = build_kernel_plan(
-                np.asarray(g.senders), np.asarray(g.receivers),
-                self.node_budget, edge_mask=np.asarray(g.edge_mask),
-                keep_masked_edges=True,
-                fwd_block_rows=self.PLAN_BLOCK,
-                fwd_window_rows=self.PLAN_BLOCK,
-                bwd_block_rows=self.PLAN_BLOCK,
-                bwd_window_rows=self.PLAN_BLOCK,
-                bwd_narrow_window_rows=None, attention=False,
-                to_device=False)
-            g = g.replace(kernel_plan=plan)
         y = np.zeros(self.node_budget, self.y.dtype)
         y[:len(gids)] = self.y[gids]
         seed_mask = np.zeros(self.node_budget, bool)

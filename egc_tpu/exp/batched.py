@@ -97,18 +97,15 @@ class BatchedGraphConfig(ExperimentConfig):
         splits = self.load_graphs()
         bs = int(hparams.get("batch_size", 128))
         all_graphs = splits["train"] + splits["val"] + splits["test"]
-        # on TPU, batches carry fused-kernel plans (node budget aligned to
-        # the plan block size); elsewhere the XLA segment path is used
-        use_plans = jax.default_backend() == "tpu"
-        budget = padding_budget(
-            all_graphs, bs,
-            node_multiple=GraphLoader.PLAN_BLOCK if use_plans else 8)
+        budget = padding_budget(all_graphs, bs)
+        # prefetch threads overlap host batching with the device step (on
+        # the CPU backend they would only compete with it)
+        prefetch = 0 if jax.default_backend() == "cpu" else 4
         # crc32, not hash(): Python string hashing is randomized per process
         # (PYTHONHASHSEED), which would break seeded-run reproducibility
         return {
             name: GraphLoader(graphs, bs, shuffle=(name == "train"),
-                              budget=budget, kernel_plans=use_plans,
-                              prefetch=4 if use_plans else 0,
+                              budget=budget, prefetch=prefetch,
                               seed=zlib.crc32(name.encode()) % (2 ** 31))
             for name, graphs in splits.items()
         }

@@ -47,7 +47,7 @@ class StopperSpec:
 @dataclasses.dataclass(frozen=True)
 class TrialResources:
     """Per-trial resource request (exptune surface parity, reference
-    zinc/configs.py:106). TPU chips are not fractionally shareable the way
+    zinc/configs.py:106). Accelerators are not fractionally shared the way
     the reference packs fractional GPUs; ``cpus`` maps to parallel-search
     worker processes and ``chips`` to whole devices per trial."""
 

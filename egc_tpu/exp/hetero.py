@@ -7,11 +7,13 @@ hyperparameter grids; 200 iters / patience 50; plateau patience 10.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.sharding import NamedSharding, PartitionSpec
 
 from egc_tpu.data import synthetic
 from egc_tpu.exp.config import (
@@ -73,12 +75,8 @@ class RMagConfig(ExperimentConfig):
 
     def data(self, hparams):
         raw = self.load_hetero()
-        hg = hetero_from_numpy(raw["nodes"], raw["edges"])
-        if jax.default_backend() == "tpu":
-            # per-relation fused-kernel plans (host-side, once per dataset)
-            from egc_tpu.graph.hetero import attach_hetero_kernel_plans
-            hg = attach_hetero_kernel_plans(hg)
-        hg = jax.tree.map(jnp.asarray, hg)
+        hg = jax.tree.map(jnp.asarray,
+                          hetero_from_numpy(raw["nodes"], raw["edges"]))
         n_paper = hg.num_nodes("paper")
         y = np.zeros(n_paper, np.int32)
         y[:len(raw["y"])] = raw["y"]
@@ -158,10 +156,7 @@ class PartitionedRMagConfig(RMagConfig):
     (L2-into-grad Adam, and ``train`` re-syncs its lr from the conv
     optimizer each step so plateau decays apply to both). Same hook
     surface as RMagConfig. Numerics equal the single-device config
-    (tests/test_hetero_partition.py), including the fused path: on TPU
-    the per-relation aggregation runs stacked per-device bipartite Pallas
-    plans inside shard_map (check_vma=False steps with explicit psums —
-    see parallel.hetero_halo).
+    (tests/test_hetero_partition.py).
     """
 
     def __init__(self, *args, partitions: int = 0, **kwargs):
@@ -193,15 +188,14 @@ class PartitionedRMagConfig(RMagConfig):
                     x_loc, ((0, 0), (0, tp.n_ext - tp.n_local), (0, 0)))
         # hg.nodes is never read by the distributed net (features flow
         # through the explicit x/emb step arguments) — hold zero-width
-        # placeholders so mag-scale features are not duplicated in HBM.
-        # On TPU, attach stacked per-relation fused-kernel plans (the
-        # steps then run check_vma=False with explicit psums).
-        kplans = (plan.build_kernel_plans()
-                  if jax.default_backend() == "tpu" else None)
-        self._check_vma = kplans is None
-        hg_stack = jax.tree.map(jnp.asarray, plan.extended_hetero_graph(
+        # placeholders so mag-scale features are not duplicated on device.
+        self._mesh = make_mesh({"graph": self.partitions})
+        # every per-partition array lives on its partition's device
+        shard = partial(jax.device_put, device=NamedSharding(
+            self._mesh, PartitionSpec("graph")))
+        hg_stack = jax.tree.map(shard, plan.extended_hetero_graph(
             {t: np.zeros(v.shape[:2] + (0,), np.float32)
-             for t, v in x_stack.items()}, kplans))
+             for t, v in x_stack.items()}))
         pp = plan.types["paper"]
         n_paper = hg.num_nodes("paper")
         y = np.zeros(n_paper, np.int32)
@@ -210,13 +204,12 @@ class PartitionedRMagConfig(RMagConfig):
         for split in ("train", "val", "test"):
             m = np.zeros(n_paper, bool)
             m[raw[f"{split}_idx"]] = True
-            masks[split] = jnp.asarray(pp.scatter(m))
-        self._mesh = make_mesh({"graph": self.partitions})
+            masks[split] = shard(pp.scatter(m))
         d = {"plan": plan, "hetero": hg_stack,
-             "x_stack": {t: jnp.asarray(v) for t, v in x_stack.items()},
-             "send_idx": {t: jnp.asarray(plan.types[t].send_idx)
+             "x_stack": {t: shard(v) for t, v in x_stack.items()},
+             "send_idx": {t: shard(plan.types[t].send_idx)
                           for t in hg.node_types},
-             "y": jnp.asarray(pp.scatter(y)),
+             "y": shard(pp.scatter(y)),
              "masks": masks,
              "num_classes": raw["num_classes"],
              "featureless": featless,
@@ -265,8 +258,7 @@ class PartitionedRMagConfig(RMagConfig):
             x_with_emb[t] = extend_local(emb[t], data["n_ext_map"][t])
         variables = init_hetero_partitioned(
             model, self._mesh, data["hetero"], x_with_emb,
-            data["send_idx"], rng,
-            check_vma=getattr(self, "_check_vma", True))
+            data["send_idx"], rng)
         return TrainState.create(
             params=variables["params"],
             batch_stats={"emb": emb, "emb_opt": emb_opt},
@@ -282,8 +274,7 @@ class PartitionedRMagConfig(RMagConfig):
                 build_hetero_partitioned_steps)
             data = self._last_data
             self._hsteps = build_hetero_partitioned_steps(
-                model, self._mesh, self._emb_tx, data["n_ext_map"],
-                check_vma=getattr(self, "_check_vma", True))
+                model, self._mesh, self._emb_tx, data["n_ext_map"])
             self._hsteps_key = key
         return self._hsteps
 

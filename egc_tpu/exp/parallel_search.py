@@ -2,12 +2,15 @@
 
 The reference packs fractional-GPU trials via ray.tune (zinc/configs.py:106)
 and prunes trials mid-flight with AsyncHyperBandScheduler while Ray runs
-them in parallel (zinc/configs.py:111-115). A TPU chip is not fractionally
-shareable, so trial parallelism here means:
+them in parallel (zinc/configs.py:111-115). A JAX process reserves most
+of an accelerator's memory when it starts, so two processes cannot share
+one card, and trial parallelism here means:
 
-- on one host: N worker PROCESSES running trials on CPU (search-phase
-  screening; the chip stays free for the final runs), or
-- across hosts: each host runs its own worker against its own chip(s)
+- on one host: N worker PROCESSES running trials on CPU
+  (``worker_platform="cpu"``: search-phase screening). The parent process
+  owns the card and keeps it for the final runs; the workers never touch
+  it;
+- across hosts: each host runs its own worker against its own card(s)
   (launch one process per host with a disjoint trial shard; results merge
   by file).
 

@@ -8,7 +8,7 @@ before restoring a checkpoint the requested architecture must match the
 published one exactly. The reference's Dropbox URLs are dead, so here the
 registry validates a *local* trial directory restore (``--pretrained``)
 against the published architecture table instead of downloading. The trial
-directory may hold either this framework's msgpack checkpoint or the
+directory may hold either this framework's npz checkpoint or the
 reference's torch ``checkpoint.pt`` (ported via
 :mod:`egc_tpu.exp.weight_port` — so parity needs only the download, not a
 retrain).

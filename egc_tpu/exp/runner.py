@@ -17,6 +17,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from egc_tpu.exp.config import ExperimentConfig
+from egc_tpu.train.checkpoint import CKPT_FILE
 
 
 def run_trial(
@@ -50,7 +51,7 @@ def run_trial(
 
     start_iter = 0
     if resume and trial_dir is not None and \
-            (Path(trial_dir) / "checkpoint.msgpack").exists():
+            (Path(trial_dir) / CKPT_FILE).exists():
         from egc_tpu.train.checkpoint import load_checkpoint
 
         state, saved_plateau, _ = load_checkpoint(Path(trial_dir),

@@ -4,8 +4,8 @@ Reference strategies (SURVEY §2.2): ``RandomSearchStrategy(num_samples)`` +
 AsyncHyperBand pruning for zinc/cifar/mol/code; ``GridSearchStrategy`` +
 FIFO for arxiv/mag. Reproduced here with a successive-halving pruner (the
 core of AsyncHyperBand) and sequential execution (trial-level parallelism
-over hosts is provided by the parallel trial runner; each TPU chip runs one
-trial at a time, unlike fractional-GPU packing).
+over hosts is provided by the parallel trial runner; each card runs one
+trial at a time, unlike the reference's fractional-GPU packing).
 """
 
 from __future__ import annotations

@@ -34,23 +34,25 @@ class TrialCurvePlotter:
                         [row.get(m) for m in self.metric_names])
         try:
             import matplotlib
-            matplotlib.use("Agg")
-            import matplotlib.pyplot as plt
+        except ImportError:
+            print(f"{self.name}: matplotlib is not installed; curves "
+                  f"written to {csv_path} only")
+            return csv_path
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
 
-            fig, ax = plt.subplots(figsize=(7, 4))
-            for m in self.metric_names:
-                for rep, hist in enumerate(histories):
-                    xs = [r["iteration"] for r in hist if m in r]
-                    ys = [r[m] for r in hist if m in r]
-                    ax.plot(xs, ys, alpha=0.6,
-                            label=m if rep == 0 else None)
-            ax.set_xlabel("iteration")
-            ax.legend()
-            fig.tight_layout()
-            fig.savefig(out_dir / f"{self.name}.png", dpi=100)
-            plt.close(fig)
-        except Exception:  # matplotlib optional
-            pass
+        fig, ax = plt.subplots(figsize=(7, 4))
+        for m in self.metric_names:
+            for rep, hist in enumerate(histories):
+                xs = [r["iteration"] for r in hist if m in r]
+                ys = [r[m] for r in hist if m in r]
+                ax.plot(xs, ys, alpha=0.6,
+                        label=m if rep == 0 else None)
+        ax.set_xlabel("iteration")
+        ax.legend()
+        fig.tight_layout()
+        fig.savefig(out_dir / f"{self.name}.png", dpi=100)
+        plt.close(fig)
         return csv_path
 
 

@@ -1,4 +1,4 @@
-"""Reference torch-checkpoint <-> flax pytree weight porting.
+"""Reference torch-checkpoint <-> JAX pytree weight porting.
 
 Converts the reference's ``model.state_dict()`` tensors (read without torch
 by :mod:`egc_tpu.utils.torch_pt`) into this framework's model variables, for
@@ -9,7 +9,7 @@ retraining (reference ``experiments/utils.py:69-79`` ``load_pretrained``).
 Layout shims handled here (all verified by tests/test_torch_import.py
 against torch-built oracles):
 
-- torch ``nn.Linear`` weights are [out, in]; flax Dense kernels are
+- torch ``nn.Linear`` weights are [out, in]; Dense kernels are
   [in, out] (transposed).
 - paper ``EfficientGraphConv`` (zinc/cifar/hiv/arxiv/code EGC rows): the
   per-basis ``bases_weight.{b}`` [in, L] ParameterList concatenates into our
@@ -80,7 +80,7 @@ def _comb_perm(H: int, B: int, A: int) -> np.ndarray:
 
 
 class _Rules:
-    """Bidirectional (flax leaf <-> torch tensors) assignment collection."""
+    """Bidirectional (JAX leaf <-> torch tensors) assignment collection."""
 
     def __init__(self):
         self.imports: List[Tuple[Tuple[str, ...], Any]] = []
@@ -95,7 +95,7 @@ class _Rules:
     # -- common rule makers ------------------------------------------------
     def linear(self, path, tp: str, *, bias: bool = True,
                weight_names=("weight",), bias_name="bias"):
-        """flax Dense at ``path`` <-> torch Linear at prefix ``tp``."""
+        """Dense at ``path`` <-> torch Linear at prefix ``tp``."""
         self.add(path + ("kernel",),
                  lambda sd: _t(_get(sd, tp, *weight_names)),
                  lambda v: {tp + weight_names[0]: _t(v)},
@@ -157,7 +157,7 @@ def _egc_optimized_rules(r: _Rules, path, tp: str, heads: int,
 
 def _tower_stack_rules(r: _Rules, kpath, bpath, tlist_prefix: str,
                        towers: int, inner: str = ""):
-    """flax [T, in, out] kernel + [T, out] bias <-> torch ModuleList of
+    """[T, in, out] kernel + [T, out] bias <-> torch ModuleList of
     per-tower Linears at ``{tlist_prefix}.{t}.{inner}weight/bias``."""
     wk = [f"{tlist_prefix}.{t}.{inner}weight" for t in range(towers)]
     bk = [f"{tlist_prefix}.{t}.{inner}bias" for t in range(towers)]
@@ -175,7 +175,7 @@ def _conv_rules(r: _Rules, kind: str, path, tp: str, *,
                 heads: Optional[int] = None, num_bases: Optional[int] = None,
                 num_aggrs: Optional[int] = None, towers: int = 4,
                 att_shape: Optional[Tuple[int, int]] = None):
-    """Rules for one conv layer; ``path`` is the flax conv module path
+    """Rules for one conv layer; ``path`` is the conv module path
     (under 'params'), ``tp`` the torch key prefix (e.g. 'convs.0.')."""
     if kind == "egc":
         _egc_paper_rules(r, path, tp, num_bases)
@@ -232,7 +232,7 @@ def _conv_rules(r: _Rules, kind: str, path, tp: str, *,
 
 
 def _mlp_rules(r: _Rules, path, tp: str, num_dense: int):
-    """flax MLP module <-> reference mlp() Sequential: Dense_k at index 4k,
+    """MLP module <-> reference mlp() Sequential: Dense_k at index 4k,
     BatchNorm at 4k+1 (reference ``experiments/utils.py:30-40``)."""
     for k in range(num_dense):
         r.linear(path + (f"Dense_{k}",), f"{tp}{4 * k}.")
@@ -444,12 +444,8 @@ def _get_path(tree: Dict[str, Any], path: Tuple[str, ...]):
 
 
 def _unfreeze(variables):
+    """A copy of ``variables`` whose nested dicts may be assigned to."""
     import jax
-    try:
-        from flax.core import unfreeze
-        variables = unfreeze(variables)
-    except Exception:
-        pass
     return jax.tree.map(lambda x: x, dict(variables))
 
 
@@ -507,7 +503,7 @@ def import_model_state(dataset: str, model_kind: str,
 def restore_pretrained_pt(config, dataset: str, pt_path, *, seed: int = 0,
                           data=None):
     """Restore a reference torch ``checkpoint.pt`` into this framework's
-    (model, TrainState, data) for evaluation — the TPU-side counterpart of
+    (model, TrainState, data) for evaluation — this framework's counterpart of
     the reference's ``load_pretrained`` (``experiments/utils.py:69-79``):
     the config supplies architecture (already validated against the
     pretrained registry), the torch file supplies weights."""

@@ -1,7 +1,7 @@
 """Heterogeneous (typed) graph container for the rmag task.
 
 Reference counterpart: per-relation ``SparseTensor`` dicts (reference
-``experiments/rmag/configs.py:87-96``). TPU shape: per node type a padded
+``experiments/rmag/configs.py:87-96``). Layout: per node type a padded
 feature array + mask; per relation ("src__rel__dst" key) a padded COO edge
 list whose senders index the source-type array and receivers the
 destination-type array.
@@ -9,11 +9,12 @@ destination-type array.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+
+from egc_tpu.utils.pytree import pytree_dataclass
 
 
 def rel_key(src: str, rel: str, dst: str) -> str:
@@ -25,7 +26,7 @@ def split_rel_key(key: str) -> Tuple[str, str, str]:
     return src, rel, dst
 
 
-@struct.dataclass
+@pytree_dataclass
 class HeteroGraph:
     """Typed graph pytree: dicts keyed by node type / relation key."""
 
@@ -35,10 +36,6 @@ class HeteroGraph:
     senders: Dict[str, jnp.ndarray]    # rel_key -> [E_r] into src-type rows
     receivers: Dict[str, jnp.ndarray]  # rel_key -> [E_r] into dst-type rows
     edge_mask: Dict[str, jnp.ndarray]
-    # rel_key -> BipartiteKernelPlan (ops.dispatch); attached on TPU via
-    # attach_hetero_kernel_plans so the hetero convs run the fused windowed
-    # kernels per relation instead of XLA gather/scatter
-    kernel_plans: Optional[Dict[str, Any]] = None
 
     @property
     def node_types(self):
@@ -56,7 +53,8 @@ def hetero_from_numpy(nodes: Dict[str, np.ndarray],
                       edges: Dict[str, Tuple[np.ndarray, np.ndarray]],
                       *, node_multiple: int = 8,
                       edge_multiple: int = 128) -> HeteroGraph:
-    """Pad per-type/per-relation arrays to hardware-friendly sizes."""
+    """Pad per-type/per-relation arrays (nodes to ``node_multiple``, edges
+    to ``edge_multiple``) with one padding row per type."""
 
     def round_up(x, m):
         return ((x + m - 1) // m) * m
@@ -90,22 +88,3 @@ def hetero_from_numpy(nodes: Dict[str, np.ndarray],
     return HeteroGraph(nodes=padded_nodes, node_mask=masks, senders=senders,
                        receivers=receivers, edge_mask=emasks)
 
-
-def attach_hetero_kernel_plans(hg: HeteroGraph, **plan_kwargs) -> HeteroGraph:
-    """Build per-relation ``BipartiteKernelPlan``s (host-side, once per
-    dataset) and attach them. Call on the numpy-stage graph BEFORE moving
-    to device; masked (padding) edges are dropped from the plans.
-
-    ``plan_kwargs`` forward to ``build_bipartite_kernel_plan`` (geometry
-    overrides for tests/tuning).
-    """
-    from egc_tpu.ops.dispatch import build_bipartite_kernel_plan
-
-    plans = {}
-    for key in hg.relations:
-        src, _, dst = split_rel_key(key)
-        plans[key] = build_bipartite_kernel_plan(
-            np.asarray(hg.senders[key]), np.asarray(hg.receivers[key]),
-            hg.num_nodes(src), hg.num_nodes(dst),
-            edge_mask=np.asarray(hg.edge_mask[key]), **plan_kwargs)
-    return hg.replace(kernel_plans=plans)

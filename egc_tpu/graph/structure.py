@@ -1,8 +1,8 @@
-"""Static-shape graph containers for TPU execution.
+"""Static-shape graph containers.
 
 Design notes
 ------------
-TPU/XLA compiles one program per shape, so ragged graphs (the reference keeps
+XLA compiles one program per shape, so ragged graphs (the reference keeps
 them as ragged ``edge_index`` tensors, reference ``experiments/zinc/configs.py:36-45``
 DataLoader) become *padded, masked, fixed-shape* arrays here:
 
@@ -30,10 +30,11 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+
+from egc_tpu.utils.pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class Graph:
     """An immutable, static-shape (batched) graph. A JAX pytree.
 
@@ -54,8 +55,6 @@ class Graph:
     # transductive "cached" path; also required for partitioned graphs where
     # local degree != global degree).
     self_weight: Optional[jnp.ndarray] = None  # [N] companion self-loop weight
-    kernel_plan: Optional[Any] = None  # GraphKernelPlan for the fused Pallas
-    # path (static full-graph tasks; see egc_tpu.ops.dispatch)
 
     @property
     def num_nodes(self) -> int:
@@ -150,7 +149,6 @@ def pad_graph(
         edges=pad_rows(g.edges, de),
         edge_weight=pad_rows(g.edge_weight, de),
         self_weight=pad_rows(g.self_weight, dn),
-        kernel_plan=g.kernel_plan,
     )
 
 

@@ -3,7 +3,7 @@
 Host-side (numpy, at ingestion time): dedup / undirected / self-loop removal.
 Device-side (jnp, jit-safe): degree and GCN symmetric-normalization weights.
 
-Self-loop policy (TPU-first design decision): the reference *materializes*
+Self-loop policy (a design decision): the reference *materializes*
 self-loop edges (PyG ``add_remaining_self_loops`` /
 ``gcn_norm(add_self_loops=True)``, reference ``experiments/layers.py:165-188``,
 ``experiments/optimized_layers.py:126-175``). Growing an edge list inside a

@@ -13,8 +13,8 @@
 from __future__ import annotations
 
 import jax.numpy as jnp
-import flax.linen as nn
 
+from egc_tpu.nn.module import Module, Embed
 from egc_tpu.nn import init as einit
 
 # ogb.utils.features.get_atom_feature_dims(): cardinalities of the 9
@@ -22,35 +22,33 @@ from egc_tpu.nn import init as einit
 ATOM_FEATURE_DIMS = (119, 4, 12, 12, 10, 6, 6, 2, 2)
 
 
-class AtomEncoder(nn.Module):
+class AtomEncoder(Module):
     emb_dim: int
 
-    @nn.compact
     def __call__(self, x):
         """x: [N, 9] int — returns [N, emb_dim]."""
         out = 0.0
         for i, dim in enumerate(ATOM_FEATURE_DIMS):
-            emb = nn.Embed(dim, self.emb_dim,
-                           embedding_init=einit.glorot_uniform,
-                           name=f"atom_emb_{i}")
+            emb = Embed(dim, self.emb_dim,
+                        embedding_init=einit.glorot_uniform,
+                        name=f"atom_emb_{i}")
             out = out + emb(x[:, i])
         return out
 
 
-class ASTNodeEncoder(nn.Module):
+class ASTNodeEncoder(Module):
     emb_dim: int
     num_nodetypes: int = 98          # reference experiments/code/utils.py:13
     num_nodeattributes: int = 10030  # code2 (old code dataset: 10003)
     max_depth: int = 20
 
-    @nn.compact
     def __call__(self, x, depth):
         """x: [N, 2] int (type, attr); depth: [N] int."""
         depth = jnp.minimum(depth, self.max_depth)
-        t = nn.Embed(self.num_nodetypes, self.emb_dim,
-                     embedding_init=einit.normal_embedding, name="type")(x[:, 0])
-        a = nn.Embed(self.num_nodeattributes, self.emb_dim,
-                     embedding_init=einit.normal_embedding, name="attr")(x[:, 1])
-        d = nn.Embed(self.max_depth + 1, self.emb_dim,
-                     embedding_init=einit.normal_embedding, name="depth")(depth)
+        t = Embed(self.num_nodetypes, self.emb_dim,
+                  embedding_init=einit.normal_embedding, name="type")(x[:, 0])
+        a = Embed(self.num_nodeattributes, self.emb_dim,
+                  embedding_init=einit.normal_embedding, name="attr")(x[:, 1])
+        d = Embed(self.max_depth + 1, self.emb_dim,
+                  embedding_init=einit.normal_embedding, name="depth")(depth)
         return t + a + d

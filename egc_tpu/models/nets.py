@@ -1,8 +1,8 @@
-"""Task model zoo — TPU re-designs of every reference network.
+"""Task model zoo — re-designs of every reference network.
 
 All families share the reference's template-method shape (embed -> L x
 [conv + BN + act (+ residual)] -> readout -> head); here the template is a
-``ConvSpec`` (which conv to build per layer) plus per-family flax modules:
+``ConvSpec`` (which conv to build per layer) plus per-family modules:
 
 - ``ZincNet``  — reference ``experiments/zinc/models.py:17-135``
 - ``CifarNet`` — reference ``experiments/cifar/models.py:18-130``
@@ -21,9 +21,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
+from egc_tpu.nn.module import Module, Dense, Dropout, Embed, remat
 from egc_tpu.graph.structure import Graph
 from egc_tpu.nn import (
     EGConv, GCNConv, GATConv, GATv2Conv, GINConv, SAGEConv, MPNNConv, PNAConv,
@@ -53,7 +54,7 @@ class ConvSpec:
     self_loop_mode: str = "paper"     # EGC only
 
     def build(self, hidden_dim: int, layer_idx: int, num_layers: int,
-              out_dim: Optional[int] = None) -> nn.Module:
+              out_dim: Optional[int] = None) -> Module:
         out = out_dim if out_dim is not None else hidden_dim
         k = self.kind
         if k == "egc":
@@ -86,12 +87,12 @@ class ConvSpec:
         raise ValueError(f"unknown model kind {k!r}; supported {MODEL_KINDS}")
 
 
-def _torch_dense(features: int, fan_in: int, name=None) -> nn.Dense:
-    return nn.Dense(features, kernel_init=einit.torch_linear_kernel,
-                    bias_init=einit.torch_linear_bias(fan_in), name=name)
+def _torch_dense(features: int, fan_in: int, name=None) -> Dense:
+    return Dense(features, kernel_init=einit.torch_linear_kernel,
+                 bias_init=einit.torch_linear_bias(fan_in), name=name)
 
 
-class ZincNet(nn.Module):
+class ZincNet(Module):
     """Embedding(28) -> L x [conv BN ReLU +res] -> pool -> MLP[h,h/2,h/4,1]."""
 
     conv: ConvSpec
@@ -103,19 +104,18 @@ class ZincNet(nn.Module):
     bn_axis: str = None               # sync-BN mesh axis (data parallel)
     num_features: int = 28            # reference zinc/models.py:14
 
-    @nn.compact
     def __call__(self, g: Graph, *, train: bool):
-        x = nn.Embed(self.num_features, self.hidden_dim,
-                     embedding_init=einit.normal_embedding,
-                     name="embedding")(g.nodes.reshape(-1))
-        x = nn.Dropout(self.in_feat_drop, deterministic=not train)(x)
+        x = Embed(self.num_features, self.hidden_dim,
+                  embedding_init=einit.normal_embedding,
+                  name="embedding")(g.nodes.reshape(-1))
+        x = Dropout(self.in_feat_drop, deterministic=not train)(x)
         for i in range(self.num_layers):
             identity = x
             x = self.conv.build(self.hidden_dim, i, self.num_layers)(
                 g, x, train=train)
             x = MaskedBatchNorm(axis_name=self.bn_axis)(x, g.node_mask,
                                   use_running_average=not train)
-            x = nn.relu(x)
+            x = jax.nn.relu(x)
             if self.residual:
                 x = x + identity
         pooled = get_pool(self.readout)(x, g.graph_ids, g.num_graphs,
@@ -125,7 +125,7 @@ class ZincNet(nn.Module):
             pooled, g.graph_mask, train=train)
 
 
-class CifarNet(nn.Module):
+class CifarNet(Module):
     """Linear(5) -> L x [drop conv BN ReLU +res] -> pool -> MLP -> 10."""
 
     conv: ConvSpec
@@ -138,18 +138,17 @@ class CifarNet(nn.Module):
     num_features: int = 5             # reference cifar/models.py:14
     num_classes: int = 10
 
-    @nn.compact
     def __call__(self, g: Graph, *, train: bool):
         x = _torch_dense(self.hidden_dim, self.num_features,
                          name="embedding")(g.nodes)
         for i in range(self.num_layers):
             identity = x
-            x = nn.Dropout(self.dropout, deterministic=not train)(x)
+            x = Dropout(self.dropout, deterministic=not train)(x)
             x = self.conv.build(self.hidden_dim, i, self.num_layers)(
                 g, x, train=train)
             x = MaskedBatchNorm(axis_name=self.bn_axis)(x, g.node_mask,
                                   use_running_average=not train)
-            x = nn.relu(x)
+            x = jax.nn.relu(x)
             if self.residual:
                 x = x + identity
         pooled = get_pool(self.readout)(x, g.graph_ids, g.num_graphs,
@@ -159,7 +158,7 @@ class CifarNet(nn.Module):
                    bn_axis=self.bn_axis)(pooled, g.graph_mask, train=train)
 
 
-class HIVNet(nn.Module):
+class HIVNet(Module):
     """AtomEncoder -> L x [conv BN ReLU +res] -> pool -> MLP -> 1 logit."""
 
     conv: ConvSpec
@@ -170,17 +169,16 @@ class HIVNet(nn.Module):
     readout: str = "mean"
     bn_axis: str = None
 
-    @nn.compact
     def __call__(self, g: Graph, *, train: bool):
         x = AtomEncoder(self.hidden_dim, name="embedding")(g.nodes)
-        x = nn.Dropout(self.in_feat_drop, deterministic=not train)(x)
+        x = Dropout(self.in_feat_drop, deterministic=not train)(x)
         for i in range(self.num_layers):
             identity = x
             x = self.conv.build(self.hidden_dim, i, self.num_layers)(
                 g, x, train=train)
             x = MaskedBatchNorm(axis_name=self.bn_axis)(x, g.node_mask,
                                   use_running_average=not train)
-            x = nn.relu(x)
+            x = jax.nn.relu(x)
             if self.residual:
                 x = x + identity
         pooled = get_pool(self.readout)(x, g.graph_ids, g.num_graphs,
@@ -190,7 +188,7 @@ class HIVNet(nn.Module):
             pooled, g.graph_mask, train=train)
 
 
-class ArxivNet(nn.Module):
+class ArxivNet(Module):
     """Linear(128) -> L x [conv BN ReLU drop +res] -> Linear(40) -> log_sm.
 
     Full-graph transductive; one graph, no pooling.
@@ -210,7 +208,6 @@ class ArxivNet(nn.Module):
     # then use the fused logsumexp NLL, train/losses.nll_scores, skipping
     # a [N, C] log-prob materialization; eval argmax is invariant)
 
-    @nn.compact
     def __call__(self, g: Graph, *, train: bool):
         x = _torch_dense(self.hidden_dim, self.num_features, name="embed")(
             g.nodes)
@@ -218,21 +215,21 @@ class ArxivNet(nn.Module):
             identity = x
             conv_mod = self.conv.build(self.hidden_dim, i, self.num_layers)
             if self.remat:
-                x = nn.remat(
+                x = remat(
                     lambda m, g_, x_: m(g_, x_, train=train))(conv_mod, g, x)
             else:
                 x = conv_mod(g, x, train=train)
             x = MaskedBatchNorm(axis_name=self.bn_axis)(x, g.node_mask,
                                   use_running_average=not train)
-            x = nn.relu(x)
-            x = nn.Dropout(self.dropout, deterministic=not train)(x)
+            x = jax.nn.relu(x)
+            x = Dropout(self.dropout, deterministic=not train)(x)
             if self.residual:
                 x = x + identity
         x = _torch_dense(self.num_classes, self.hidden_dim, name="out")(x)
-        return nn.log_softmax(x, axis=-1) if self.log_probs else x
+        return jax.nn.log_softmax(x, axis=-1) if self.log_probs else x
 
 
-class CodeNet(nn.Module):
+class CodeNet(Module):
     """ASTNodeEncoder -> L x [conv BN ReLU +res] -> pool -> seq_len heads.
 
     Returns [G, seq_len, vocab+2] logits (reference code/models.py:102-125
@@ -251,21 +248,20 @@ class CodeNet(nn.Module):
     num_nodeattributes: int = 10030
     max_depth: int = 20
 
-    @nn.compact
     def __call__(self, g: Graph, *, train: bool):
         # g.nodes: [N, 3] int = (type, attr, depth)
         x = ASTNodeEncoder(self.hidden_dim,
                            num_nodeattributes=self.num_nodeattributes,
                            max_depth=self.max_depth,
                            name="embedding")(g.nodes[:, :2], g.nodes[:, 2])
-        x = nn.Dropout(self.in_feat_drop, deterministic=not train)(x)
+        x = Dropout(self.in_feat_drop, deterministic=not train)(x)
         for i in range(self.num_layers):
             identity = x
             x = self.conv.build(self.hidden_dim, i, self.num_layers)(
                 g, x, train=train)
             x = MaskedBatchNorm(axis_name=self.bn_axis)(x, g.node_mask,
                                   use_running_average=not train)
-            x = nn.relu(x)
+            x = jax.nn.relu(x)
             if self.residual:
                 x = x + identity
         pooled = get_pool(self.readout)(x, g.graph_ids, g.num_graphs,
@@ -276,7 +272,7 @@ class CodeNet(nn.Module):
         return out.reshape(pooled.shape[0], self.seq_len, self.vocab_size + 2)
 
 
-class MagNet(nn.Module):
+class MagNet(Module):
     """ogbn-mag homogeneous net: EGConv stack with out rounded 352 -> 349.
 
     Reference ``experiments/mag/models.py``: EGConv(cached, self-loops for all
@@ -295,7 +291,6 @@ class MagNet(nn.Module):
     out_true: int = 349
     log_probs: bool = True            # see ArxivNet.log_probs
 
-    @nn.compact
     def __call__(self, g: Graph, *, train: bool):
         x = g.nodes
         for i in range(self.num_layers):
@@ -305,15 +300,15 @@ class MagNet(nn.Module):
                               num_bases=self.bases,
                               aggrs=tuple(self.aggrs), self_loop_mode="all")
             if self.remat:
-                x = nn.remat(
+                x = remat(
                     lambda m, g_, x_: m(g_, x_, train=train))(conv_mod, g, x)
             else:
                 x = conv_mod(g, x, train=train)
             if i < self.num_layers - 1:
-                x = nn.relu(x)
-                x = nn.Dropout(self.dropout, deterministic=not train)(x)
+                x = jax.nn.relu(x)
+                x = Dropout(self.dropout, deterministic=not train)(x)
         x = x[:, :self.out_true]
-        return nn.log_softmax(x, axis=-1) if self.log_probs else x
+        return jax.nn.log_softmax(x, axis=-1) if self.log_probs else x
 
 
 def make_conv(kind: str, **kwargs) -> ConvSpec:

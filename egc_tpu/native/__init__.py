@@ -3,7 +3,7 @@
 Currently: ``fastcsv`` — the multithreaded numeric-CSV parser behind the
 on-disk dataset readers (:mod:`egc_tpu.data.ondisk`). The shared library is
 compiled lazily with g++ on first use and cached next to the source (or in
-``$EGC_TPU_NATIVE_CACHE`` when the package directory is read-only); every
+``$EGC_NATIVE_CACHE`` when the package directory is read-only); every
 caller falls back to pandas / numpy when no compiler is available.
 """
 
@@ -26,7 +26,7 @@ _LIB_TRIED = False
 
 
 def _cache_dir() -> Path:
-    env = os.environ.get("EGC_TPU_NATIVE_CACHE")
+    env = os.environ.get("EGC_NATIVE_CACHE")
     if env:
         return Path(env)
     return _SRC_DIR

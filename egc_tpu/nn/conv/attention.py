@@ -7,16 +7,16 @@ itself (PyG ``add_self_loops=True`` default), LeakyReLU slope 0.2, per-head
 softmax at the receiver, dropout on the normalized attention coefficients in
 training (PyG applies F.dropout to alpha after softmax), heads concatenated.
 
-TPU-first: instead of materializing self-loop edges, the self term enters the
-segment softmax analytically (one fewer gather per edge, static shapes).
+Instead of materializing self-loop edges, the self term enters the segment
+softmax analytically (one fewer gather per edge, static shapes).
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
+from egc_tpu.nn.module import Module, Dense, Dropout
 from egc_tpu.graph.structure import Graph
 from egc_tpu.nn import init as einit
 from egc_tpu.ops import segment_sum
@@ -35,7 +35,7 @@ def _attention_alphas(edge_logits, self_logits, receivers, num_nodes,
     masked_logits = edge_logits
     if edge_mask is not None:
         masked_logits = jnp.where(edge_mask[:, None], edge_logits, neg)
-    # _segment_max_raw: TPU-safe VJP (packed single gather — see ops.segment)
+    # _segment_max_raw: single-gather VJP (see ops.segment)
     mx = _segment_max_raw(masked_logits, receivers, num_nodes, False)
     mx = jnp.maximum(mx, neg)  # empty segments: -inf -> -1e30
     if include_self:
@@ -50,24 +50,21 @@ def _attention_alphas(edge_logits, self_logits, receivers, num_nodes,
         ex_self = jnp.exp(self_logits - mx)
         denom = denom + ex_self
     denom = jnp.maximum(denom, jnp.asarray(1e-16, denom.dtype))
-    # NB: single gather of denom; do NOT add a second same-index gather
-    # here (e.g. of mx) — same-index gather pairs have been observed to
-    # mis-merge under XLA:TPU fusion (see ops.segment._make_varstd_edges).
     alpha_edge = ex / denom[receivers]
     alpha_self = ex_self / denom if include_self else None
     return alpha_edge, alpha_self
 
 
-class _AttentionConvBase(nn.Module):
+class _AttentionConvBase(Module):
     """Shared alpha -> dropout -> weighted-sum plumbing."""
 
     def _aggregate(self, alpha_edge, alpha_self, edge_vals, self_vals,
                    receivers, num_nodes, dropout, train):
         if dropout > 0.0:
-            alpha_edge = nn.Dropout(dropout, deterministic=not train)(alpha_edge)
+            alpha_edge = Dropout(dropout, deterministic=not train)(alpha_edge)
             if alpha_self is not None:
-                alpha_self = nn.Dropout(dropout,
-                                        deterministic=not train)(alpha_self)
+                alpha_self = Dropout(dropout,
+                                     deterministic=not train)(alpha_self)
         out = segment_sum(alpha_edge[:, :, None] * edge_vals, receivers,
                           num_nodes)
         if alpha_self is not None:
@@ -75,102 +72,8 @@ class _AttentionConvBase(nn.Module):
         return out
 
 
-def _fused_attention_enabled() -> bool:
-    """Fused attention kernels are ON by default (round-2 full-lane
-    redesign: 2.9-3.4x over XLA on arxiv-scale GAT, 1.07x at zinc batch
-    scale, and the only single-chip path for arxiv-scale GATv2 — XLA
-    OOMs; see PERFORMANCE.md). Set EGC_TPU_FUSED_ATTENTION=0 to force
-    the XLA fallback."""
-    import os
-    return os.environ.get("EGC_TPU_FUSED_ATTENTION", "1") == "1"
-
-
-def _attn_cp(heads: int, channels: int) -> int:
-    """Smallest power-of-two per-head width >= channels with H*cp a lane
-    multiple (the fused kernel's head-fold needs a power of two)."""
-    cp = 1
-    while cp < channels or (heads * cp) % 128:
-        cp *= 2
-    return cp
-
-
-def _pad_rows(n_pad, *arrays):
-    """Zero-pad leading (node) axis of each array up to n_pad rows."""
-    return [jnp.pad(a, ((0, n_pad - a.shape[0]),) + ((0, 0),) * (a.ndim - 1))
-            for a in arrays]
-
-
-def _fused_gat_softmax_sum(g, h, a_src, a_dst, self_logits, n, H, C,
-                           slope, include_self):
-    """Fused Pallas edge-softmax path: returns out [n, H, C].
-
-    Runs the flash-style kernel over edges, then combines the virtual
-    self-loop term and normalizes with the exact online-softmax merge.
-
-    Supports n < plan.n_pad (partitioned extended graphs, loader shadow
-    rows): node arrays are zero-row-padded to the plan size and outputs
-    sliced back — pad rows are edge-free (or shadow targets whose output
-    is discarded), so valid rows are untouched.
-    """
-    from egc_tpu.ops.pallas.attention import gat_attention
-
-    plan = g.kernel_plan
-    n_orig = n
-    if n < plan.n_pad:
-        h, a_src, a_dst, self_logits = _pad_rows(
-            plan.n_pad, h, a_src, a_dst, self_logits)
-        n = plan.n_pad
-    cp = _attn_cp(H, C)
-    hcp = H * cp
-    # head-interleaved packing: col c*H + h_i. When a free pad channel
-    # exists (cp > C), channel C is packed as CONSTANT 1 and the kernel's
-    # single RMW accumulates the softmax denominator there; when cp == C
-    # (e.g. the h128/4-head arxiv config) the kernel runs its separate-
-    # denominator variant (dchan=None). a_src rides pre-expanded to the
-    # same layout (tile = col c*H+h -> a_src[h]) so the kernel body needs
-    # no lane shuffles.
-    if cp > C:
-        wh_int = jnp.concatenate(
-            [h.transpose(0, 2, 1), jnp.ones((n, 1, H), h.dtype),
-             jnp.zeros((n, cp - C - 1, H), h.dtype)],
-            axis=1).reshape(n, hcp)
-        dchan = C
-    else:
-        wh_int = h.transpose(0, 2, 1).reshape(n, hcp)
-        dchan = None
-    src_pack = jnp.concatenate([wh_int, jnp.tile(a_src, (1, cp))], axis=1)
-    adst = jnp.pad(a_dst, ((0, 0), (0, 128 - H)))
-    o, md = gat_attention(src_pack, adst, plan, heads=H, cp=cp, dchan=dchan,
-                          slope=slope)
-    # the merged output below is analytically invariant to the running
-    # max m, so m is non-differentiable by design (the kernel VJP drops
-    # the max-tie term) — stop_gradient keeps autodiff consistent
-    m_e = jax.lax.stop_gradient(md[:, :H])
-    d_e = md[:, 64:64 + H]
-    o = o.reshape(n, cp, H).transpose(0, 2, 1)[:, :, :C]   # [n, H, C]
-    has = (plan.deg > 0)[:, None]
-    neg = jnp.asarray(-1e30, h.dtype)
-    m_e = jnp.where(has, m_e, neg)
-    if include_self:
-        # invariant to m_full as well -> constant stabilizer
-        m_full = jax.lax.stop_gradient(jnp.maximum(m_e, self_logits))
-        corr = jnp.exp(m_e - m_full)
-        p_self = jnp.exp(self_logits - m_full)
-        denom = d_e * corr + p_self
-        out = (o * corr[:, :, None] + p_self[:, :, None] * h) / \
-            jnp.maximum(denom, 1e-16)[:, :, None]
-    else:
-        out = jnp.where(has[:, :, None],
-                        o / jnp.maximum(d_e, 1e-16)[:, :, None], 0.0)
-    return out[:n_orig]
-
-
 class GATConv(_AttentionConvBase):
-    """PyG GATConv: logits_ij = LeakyReLU(a_src . Wx_j + a_dst . Wx_i).
-
-    On TPU with a kernel-plan graph (and no active attention dropout) the
-    per-receiver softmax + weighted sum runs in the fused Pallas kernel
-    (egc_tpu.ops.pallas.attention) instead of XLA segment ops."""
+    """PyG GATConv: logits_ij = LeakyReLU(a_src . Wx_j + a_dst . Wx_i)."""
 
     out_channels: int            # per-head
     heads: int = 1
@@ -179,104 +82,36 @@ class GATConv(_AttentionConvBase):
     add_self_loops: bool = True
     use_bias: bool = True
 
-    @nn.compact
     def __call__(self, g: Graph, x, *, train: bool = False):
         n, H, C = x.shape[0], self.heads, self.out_channels
-        h = nn.Dense(H * C, use_bias=False, kernel_init=einit.glorot_uniform,
-                     name="lin")(x).reshape(n, H, C)
+        h = Dense(H * C, use_bias=False, kernel_init=einit.glorot_uniform,
+                  name="lin")(x).reshape(n, H, C)
         att_src = self.param("att_src", einit.glorot_uniform, (H, C))
         att_dst = self.param("att_dst", einit.glorot_uniform, (H, C))
         a_src = jnp.einsum("nhc,hc->nh", h, att_src)
         a_dst = jnp.einsum("nhc,hc->nh", h, att_dst)
 
-        self_logits = nn.leaky_relu(a_src + a_dst,
-                                    negative_slope=self.negative_slope)
-
-        plan = getattr(g, "kernel_plan", None)
-        if (plan is not None and getattr(plan, "fwd_attn", None) is not None
-                and n <= plan.n_pad and H <= 32
-                and (self.dropout == 0.0 or not train)
-                and _fused_attention_enabled()
-                and jax.default_backend() == "tpu"):
-            out = _fused_gat_softmax_sum(
-                g, h, a_src, a_dst, self_logits, n, H, C,
-                self.negative_slope, self.add_self_loops)
-        else:
-            edge_logits = nn.leaky_relu(
-                jnp.take(a_src, g.senders, axis=0) +
-                jnp.take(a_dst, g.receivers, axis=0),
-                negative_slope=self.negative_slope)
-            alpha_e, alpha_s = _attention_alphas(
-                edge_logits, self_logits, g.receivers, n, g.edge_mask,
-                self.add_self_loops)
-            out = self._aggregate(alpha_e, alpha_s,
-                                  jnp.take(h, g.senders, axis=0), h,
-                                  g.receivers, n, self.dropout, train)
+        self_logits = jax.nn.leaky_relu(a_src + a_dst,
+                                        negative_slope=self.negative_slope)
+        edge_logits = jax.nn.leaky_relu(
+            jnp.take(a_src, g.senders, axis=0) +
+            jnp.take(a_dst, g.receivers, axis=0),
+            negative_slope=self.negative_slope)
+        alpha_e, alpha_s = _attention_alphas(
+            edge_logits, self_logits, g.receivers, n, g.edge_mask,
+            self.add_self_loops)
+        out = self._aggregate(alpha_e, alpha_s,
+                              jnp.take(h, g.senders, axis=0), h,
+                              g.receivers, n, self.dropout, train)
         out = out.reshape(n, H * C)
         if self.use_bias:
-            out = out + self.param("bias", nn.initializers.zeros, (H * C,),
-                                   jnp.float32)
+            out = out + self.param("bias", jax.nn.initializers.zeros,
+                                   (H * C,), jnp.float32)
         return out
 
 
-def _fused_gatv2_softmax_sum(g, hl, hr, att, self_logits, n, H, C,
-                             slope, include_self):
-    """Fused Pallas GATv2 edge-softmax path: returns out [n, H, C].
-
-    Requires cp > C (gated by the caller): channel C of whl is packed
-    CONSTANT 1 to carry the softmax denominator (att's pad channels are
-    zero, so the ones never perturb the logits). Supports n < plan.n_pad
-    (see _fused_gat_softmax_sum)."""
-    from egc_tpu.ops.pallas.attention import gatv2_attention
-
-    plan = g.kernel_plan
-    n_orig = n
-    if n < plan.n_pad:
-        hl, hr, self_logits = _pad_rows(plan.n_pad, hl, hr, self_logits)
-        n = plan.n_pad
-    cp = _attn_cp(H, C)
-    hcp = H * cp
-
-    def interleave(x, ones_chan=False):  # [n, H, C] -> [n, hcp] (c*H + h)
-        xt = x.transpose(0, 2, 1)
-        if ones_chan:
-            xt = jnp.concatenate(
-                [xt, jnp.ones((n, 1, H), x.dtype),
-                 jnp.zeros((n, cp - C - 1, H), x.dtype)], axis=1)
-        else:
-            xt = jnp.pad(xt, ((0, 0), (0, cp - C), (0, 0)))
-        return xt.reshape(n, hcp)
-
-    att_i = jnp.pad(att.T, ((0, cp - C), (0, 0))).reshape(1, hcp)
-    att_rep = jnp.broadcast_to(att_i, (8, hcp))
-    o, md = gatv2_attention(interleave(hl, ones_chan=True), interleave(hr),
-                            att_rep, plan, heads=H, cp=cp, dchan=C,
-                            slope=slope)
-    # m is non-differentiable by design (see _fused_gat_softmax_sum)
-    m_e = jax.lax.stop_gradient(md[:, :H])
-    d_e = md[:, 64:64 + H]
-    o = o.reshape(n, cp, H).transpose(0, 2, 1)[:, :, :C]
-    has = (plan.deg > 0)[:, None]
-    neg = jnp.asarray(-1e30, hl.dtype)
-    m_e = jnp.where(has, m_e, neg)
-    if include_self:
-        # invariant to m_full as well -> constant stabilizer
-        m_full = jax.lax.stop_gradient(jnp.maximum(m_e, self_logits))
-        corr = jnp.exp(m_e - m_full)
-        p_self = jnp.exp(self_logits - m_full)
-        denom = d_e * corr + p_self
-        out = (o * corr[:, :, None] + p_self[:, :, None] * hl) / \
-            jnp.maximum(denom, 1e-16)[:, :, None]
-        return out[:n_orig]
-    return jnp.where(has[:, :, None],
-                     o / jnp.maximum(d_e, 1e-16)[:, :, None], 0.0)[:n_orig]
-
-
 class GATv2Conv(_AttentionConvBase):
-    """PyG GATv2Conv: logits_ij = a . LeakyReLU(W_l x_j + W_r x_i).
-
-    On TPU with a kernel-plan graph (and no active attention dropout) the
-    edge softmax runs in the fused Pallas GATv2 kernel."""
+    """PyG GATv2Conv: logits_ij = a . LeakyReLU(W_l x_j + W_r x_i)."""
 
     out_channels: int            # per-head
     heads: int = 1
@@ -286,49 +121,36 @@ class GATv2Conv(_AttentionConvBase):
     share_weights: bool = False
     use_bias: bool = True
 
-    @nn.compact
     def __call__(self, g: Graph, x, *, train: bool = False):
         n, H, C = x.shape[0], self.heads, self.out_channels
-        hl = nn.Dense(H * C, use_bias=True, kernel_init=einit.glorot_uniform,
-                      bias_init=nn.initializers.zeros,
-                      name="lin_l")(x).reshape(n, H, C)
+        hl = Dense(H * C, use_bias=True, kernel_init=einit.glorot_uniform,
+                   bias_init=jax.nn.initializers.zeros,
+                   name="lin_l")(x).reshape(n, H, C)
         if self.share_weights:
             hr = hl
         else:
-            hr = nn.Dense(H * C, use_bias=True,
-                          kernel_init=einit.glorot_uniform,
-                          bias_init=nn.initializers.zeros,
-                          name="lin_r")(x).reshape(n, H, C)
+            hr = Dense(H * C, use_bias=True,
+                       kernel_init=einit.glorot_uniform,
+                       bias_init=jax.nn.initializers.zeros,
+                       name="lin_r")(x).reshape(n, H, C)
         att = self.param("att", einit.glorot_uniform, (H, C))
 
         def logits(src_feat, dst_feat):
-            z = nn.leaky_relu(src_feat + dst_feat,
-                              negative_slope=self.negative_slope)
+            z = jax.nn.leaky_relu(src_feat + dst_feat,
+                                  negative_slope=self.negative_slope)
             return jnp.einsum("nhc,hc->nh", z, att)
 
         self_logits = logits(hl, hr)
-
-        plan = getattr(g, "kernel_plan", None)
-        if (plan is not None and getattr(plan, "fwd_attn", None) is not None
-                and n <= plan.n_pad and H <= 32
-                and _attn_cp(H, C) > C   # ones channel for the denominator
-                and (self.dropout == 0.0 or not train)
-                and _fused_attention_enabled()
-                and jax.default_backend() == "tpu"):
-            out = _fused_gatv2_softmax_sum(
-                g, hl, hr, att, self_logits, n, H, C,
-                self.negative_slope, self.add_self_loops)
-        else:
-            edge_logits = logits(jnp.take(hl, g.senders, axis=0),
-                                 jnp.take(hr, g.receivers, axis=0))
-            alpha_e, alpha_s = _attention_alphas(
-                edge_logits, self_logits, g.receivers, n, g.edge_mask,
-                self.add_self_loops)
-            out = self._aggregate(alpha_e, alpha_s,
-                                  jnp.take(hl, g.senders, axis=0), hl,
-                                  g.receivers, n, self.dropout, train)
+        edge_logits = logits(jnp.take(hl, g.senders, axis=0),
+                             jnp.take(hr, g.receivers, axis=0))
+        alpha_e, alpha_s = _attention_alphas(
+            edge_logits, self_logits, g.receivers, n, g.edge_mask,
+            self.add_self_loops)
+        out = self._aggregate(alpha_e, alpha_s,
+                              jnp.take(hl, g.senders, axis=0), hl,
+                              g.receivers, n, self.dropout, train)
         out = out.reshape(n, H * C)
         if self.use_bias:
-            out = out + self.param("bias", nn.initializers.zeros, (H * C,),
-                                   jnp.float32)
+            out = out + self.param("bias", jax.nn.initializers.zeros,
+                                   (H * C,), jnp.float32)
         return out

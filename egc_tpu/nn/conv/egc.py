@@ -23,42 +23,40 @@ Node-wise formulation (arXiv 2104.01481):
     x'_i = ||_{h=1..H}  sum_{a in A} sum_{b=1..B}
            w[i,h,b,a] * AGG_a_{j in N(i) (+ i)} (Theta_b x_j)
 
-Computation is TPU-shaped: ONE fused ``multi_aggregate`` pass over the edges
-produces all aggregators (the paper's "aggregator fusion"), and the head
-mixing is a single einsum that XLA maps onto the MXU. EGC-S = one aggregator
-with softmax weighting; EGC-M = several aggregators, no softmax.
+ONE ``multi_aggregate`` pass over the edges produces all aggregators (the
+paper's "aggregator fusion"), and the head mixing is one
+broadcast-multiply-reduce. EGC-S = one aggregator with softmax weighting;
+EGC-M = several aggregators, no softmax.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
-import os
-
+import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
+from egc_tpu.nn.module import Module, Dense
 from egc_tpu.graph.structure import Graph
 from egc_tpu.graph.transforms import symnorm_weight
 from egc_tpu.nn import init as einit
 from egc_tpu.ops import canonical_aggr
+from egc_tpu.ops.dispatch import conv_aggregate
 
 
 def head_mix(w, y, n, H, B, A, L):
     """z[n,h,l] = sum_{b,a} w[n,h,b,a] * y[n,a,b,l] — the EGC head mixing.
 
-    Written as a broadcast-multiply + reduction instead of
-    ``jnp.einsum("nhba,nabl->nhl", ...)``: XLA lowers the einsum as a
-    [N]-batch of tiny (H x BA x L) matmuls, measured 8 ms fwd / 16 ms
-    fwd+bwd per layer at ogbn-arxiv scale on TPU v5e; the fused
-    elementwise-reduce form is VPU-bound and ~10x cheaper.
+    A broadcast-multiply + reduction over the tiny (B*A) axis, which XLA
+    fuses into one elementwise-reduce pass, rather than an [N]-batch of
+    (H x BA x L) matmuls.
     """
     w2 = w.transpose(0, 1, 3, 2).reshape(n, H, A * B, 1)     # [n,h,ab,1]
     y2 = y.reshape(n, 1, A * B, L)                           # [n,1,ab,l]
     return jnp.sum(w2 * y2, axis=2)                          # [n,h,l]
 
 
-class EGConv(nn.Module):
+class EGConv(Module):
     out_channels: int
     num_heads: int = 8
     num_bases: int = 4
@@ -68,7 +66,6 @@ class EGConv(nn.Module):
     self_loop_mode: str = "paper"  # paper | all (see module docstring)
     use_bias: bool = True
 
-    @nn.compact
     def __call__(self, g: Graph, x, *, train: bool = False):
         H, B = self.num_heads, self.num_bases
         aggrs = tuple(canonical_aggr(a) for a in self.aggrs)
@@ -83,83 +80,25 @@ class EGConv(nn.Module):
             raise ValueError(f"unknown self_loop_mode {self.self_loop_mode!r}")
         n = x.shape[0]
 
-        import jax as _jax
-
-        from egc_tpu.ops.pallas.headmix import (
-            head_mix_fused, headmix_enabled, headmix_min_rows,
-        )
-
-        # Plan-gated like every fused kernel: plan-free graphs include the
-        # partitioned XLA steps that run under shard_map check_vma=True,
-        # where a Pallas call (no vma types) would not trace.
-        use_fused_mix = (
-            _jax.default_backend() == "tpu" and headmix_enabled()
-            and getattr(g, "kernel_plan", None) is not None
-            and n >= headmix_min_rows())
-
         # Bases ([in, B*L], glorot per basis) and per-node combination
-        # weights ([in, H*B*A], torch Linear init parity) ride ONE fused
-        # matmul over x: the two separate dot_generals each re-stream the
-        # [n, in] activation through HBM (profiled ~36 ms/step at mag
-        # h352, ~5x the bandwidth bound of a single pass); the zero-row
-        # calls only materialize the params, keeping the checkpoint tree
-        # ({bases: kernel, comb: kernel+bias}) unchanged. On the fused-mix
-        # path the bases columns are zero-padded IN THE KERNEL to the
-        # 128-lane width the aggregation sweeps run at, so no [n, B*L]
-        # pad/slice round trips materialize (profiled ~10 ms at mag h352;
-        # head_mix_fused consumes the padded width via y_width).
+        # weights ([in, H*B*A], torch Linear init parity).
         fan_in = x.shape[-1]
-        zero = x[:0]
-        nn.Dense(B * L, use_bias=False,
-                 kernel_init=einit.glorot_per_base(B), name="bases")(zero)
-        nn.Dense(H * B * A, kernel_init=einit.torch_linear_kernel,
-                 bias_init=einit.torch_linear_bias(fan_in),
-                 name="comb")(zero)
-        wb = self.get_variable("params", "bases")["kernel"]
-        wc = self.get_variable("params", "comb")["kernel"]
-        bc = self.get_variable("params", "comb")["bias"]
-        bl = B * L
-        bl_pad = ((bl + 127) // 128) * 128 if use_fused_mix else bl
-        if bl_pad != bl:
-            wb = jnp.pad(wb, ((0, 0), (0, bl_pad - bl)))
-        # EGC_TPU_BF16_DENSE=1: bf16 multiplies for the node-level
-        # matmuls (f32 accumulate/output). The mag h352 dots are
-        # f32-MXU-compute-bound (~21 ms of the 695 ms step); bf16 is the
-        # standard TPU training numerics but the reference trained f32,
-        # so this is opt-in (goldens/parity gates run f32).
-        mm_dtype = jnp.bfloat16 if (
-            use_fused_mix and os.environ.get("EGC_TPU_BF16_DENSE") == "1"
-        ) else x.dtype
-        xm = x.astype(mm_dtype)
-        def mm(a, b):
-            # preferred_element_type keeps f32 ACCUMULATE/OUTPUT from
-            # bf16 inputs (a plain @ would round the result to bf16)
-            return jnp.matmul(a, b.astype(mm_dtype),
-                              preferred_element_type=jnp.float32)
-
-        if fan_in >= 192:
-            # one pass over x wins when re-streaming the [n, in]
-            # activation dominates (mag h352 layer 1: 36 -> 23 ms);
-            # at in=128 the split/concat overhead outweighs it (arxiv
-            # h128 measured ~1% slower fused)
-            fused = mm(xm, jnp.concatenate([wb, wc], axis=1))
-            bases = fused[:, :bl_pad]
-            w = fused[:, bl_pad:] + bc
-        else:
-            bases = mm(xm, wb)
-            w = mm(xm, wc) + bc
+        bases = Dense(B * L, use_bias=False,
+                      kernel_init=einit.glorot_per_base(B), name="bases")(x)
+        w = Dense(H * B * A, kernel_init=einit.torch_linear_kernel,
+                  bias_init=einit.torch_linear_bias(fan_in), name="comb")(x)
         if self.weighting == "softmax":
             # softmax across ALL bases*aggregators per head
             # (reference experiments/layers.py:112-120).
-            w = nn.softmax(w.reshape(n, H, B * A), axis=-1)
+            w = jax.nn.softmax(w.reshape(n, H, B * A), axis=-1)
         elif self.weighting == "sigmoid":
-            w = nn.sigmoid(w)
+            w = jax.nn.sigmoid(w)
         elif self.weighting == "hardtanh":
             w = jnp.clip(w, -1.0, 1.0)
         w = w.reshape(n, H, B, A)
 
         # Symnorm weights (computed in-graph; XLA CSEs the recomputation
-        # across layers within a step — the TPU analog of the reference's
+        # across layers within a step — the analog of the reference's
         # cached=True, optimized_layers.py:126-175).
         sym_ew = sym_sw = None
         if "symnorm" in aggrs:
@@ -172,27 +111,11 @@ class EGConv(nn.Module):
                     add_self_loops=self.add_self_loops, dtype=jnp.float32)
 
         include_self = self.self_loop_mode == "all" and self.add_self_loops
-        # conv_aggregate dispatches to the fused Pallas kernels on TPU when
-        # the graph carries a kernel plan and B*L is lane-aligned.
-        from egc_tpu.ops.dispatch import conv_aggregate
-
-        bias = self.param("bias", nn.initializers.zeros, (O,),
-                          jnp.float32) if self.use_bias else None
-        if use_fused_mix:
-            # Fused head mix: consume the per-aggregator parts directly
-            # (no [n, A, F] stack, no [n, H, A*B, L] intermediate) — see
-            # ops/pallas/headmix.py for the measured XLA-lowering gap.
-            # Bias rides the kernel epilogue (saves the [n, O] add pass).
-            ys = conv_aggregate(g, bases, aggrs, include_self=include_self,
-                                symnorm_edge_w=sym_ew, symnorm_self_w=sym_sw,
-                                stacked=False)
-            return head_mix_fused(w.reshape(n, H * B * A), ys,
-                                  H=H, B=B, A=A, L=L,
-                                  y_width=ys[0].shape[1], bias=bias)
         y = conv_aggregate(g, bases, aggrs, include_self=include_self,
                            symnorm_edge_w=sym_ew, symnorm_self_w=sym_sw)
         y = y.reshape(n, A, B, L)
-
-        # Head mixing (see head_mix for the TPU lowering note).
         z = head_mix(w, y, n, H, B, A, L).reshape(n, O)
-        return z if bias is None else z + bias
+        if self.use_bias:
+            z = z + self.param("bias", jax.nn.initializers.zeros, (O,),
+                               jnp.float32)
+        return z

@@ -18,8 +18,8 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
+from egc_tpu.nn.module import Module, Dense, Dropout
 from egc_tpu.graph.hetero import HeteroGraph, split_rel_key
 from egc_tpu.nn import init as einit
 from egc_tpu.ops import segment_mean, segment_max
@@ -28,20 +28,7 @@ from egc_tpu.ops import segment_mean, segment_max
 def _rel_multi_aggregate(hg: HeteroGraph, key: str, x_src, n_dst: int,
                          aggrs: Tuple[str, ...]):
     """Per-relation aggregation of source-node rows into the destination
-    node space: returns [n_dst, A, F]. Dispatches to the fused bipartite
-    windowed kernel when the graph carries a plan for this relation and we
-    are on TPU; XLA masked segment ops otherwise (identical semantics)."""
-    plans = getattr(hg, "kernel_plans", None) or {}
-    plan = plans.get(key)
-    if plan is not None and jax.default_backend() == "tpu":
-        from egc_tpu.ops.dispatch import bipartite_multi_aggregate
-        out = bipartite_multi_aggregate(x_src, plan, aggrs)
-        if out.shape[0] < n_dst:
-            # partitioned extended graphs: the plan's dst grid covers the
-            # LOCAL rows only (receivers are always owned); halo dst rows
-            # aggregate to zero on the XLA path, so zero-pad to match
-            out = jnp.pad(out, ((0, n_dst - out.shape[0]), (0, 0), (0, 0)))
-        return out[:n_dst]
+    node space (masked segment ops): returns [n_dst, A, F]."""
     fns = {"mean": segment_mean, "max": segment_max}
     gathered = jnp.take(x_src, hg.senders[key], axis=0)
     outs = [fns[a](gathered, hg.receivers[key], n_dst,
@@ -49,37 +36,35 @@ def _rel_multi_aggregate(hg: HeteroGraph, key: str, x_src, n_dst: int,
     return jnp.stack(outs, axis=1)
 
 
-class RGCNConv(nn.Module):
+class RGCNConv(Module):
     out_channels: int
 
-    @nn.compact
     def __call__(self, hg: HeteroGraph, x_dict, *, train: bool = False):
         out = {}
         for t in sorted(x_dict):
             fan_in = x_dict[t].shape[-1]
-            out[t] = nn.Dense(self.out_channels,
-                              kernel_init=einit.torch_linear_kernel,
-                              bias_init=einit.torch_linear_bias(fan_in),
-                              name=f"root_{t}")(x_dict[t])
+            out[t] = Dense(self.out_channels,
+                           kernel_init=einit.torch_linear_kernel,
+                           bias_init=einit.torch_linear_bias(fan_in),
+                           name=f"root_{t}")(x_dict[t])
         for key in hg.relations:
             src, _, dst = split_rel_key(key)
             n_dst = hg.num_nodes(dst)
             agg = _rel_multi_aggregate(hg, key, x_dict[src], n_dst,
                                        ("mean",))[:, 0]
-            out[dst] = out[dst] + nn.Dense(
+            out[dst] = out[dst] + Dense(
                 self.out_channels, use_bias=False,
                 kernel_init=einit.torch_linear_kernel,
                 name=f"rel_{key}")(agg)
         return out
 
 
-class REGConv(nn.Module):
+class REGConv(Module):
     out_channels: int
     num_heads: int = 4
     num_bases: int = 4
     aggrs: Tuple[str, ...] = ("mean", "max")   # reference uses exactly these
 
-    @nn.compact
     def __call__(self, hg: HeteroGraph, x_dict, *, train: bool = False):
         H, B = self.num_heads, self.num_bases
         A = len(self.aggrs)
@@ -87,53 +72,27 @@ class REGConv(nn.Module):
         if self.out_channels % H:
             raise ValueError("out_channels must divide num_heads")
 
-        # The combines z[n,h,l] = sum_k w[n,h,k] * y[n,k,l] are EGC head
-        # mixes (k = bases for the root path, aggr-major A*B for the
-        # relation path); on TPU with fused plans they run on the
-        # transposed-layout kernel (ops/pallas/headmix.py) — the batched
-        # tiny-matmul einsum was the dominant hetero glue at mag scale.
-        import jax as _jax
-
-        from egc_tpu.ops.pallas.headmix import (
-            head_mix_fused, headmix_enabled, headmix_min_rows,
-        )
-
-        # The head mix is a node-level op, so the plans condition is only a
-        # proxy for "not a plan-free shard_map check_vma=True step" (where
-        # a Pallas call would not trace). Require a plan for EVERY relation
-        # — a partial plans dict means mixed dispatch and we stay on XLA.
-        plans = getattr(hg, "kernel_plans", None) or {}
-        plans_complete = bool(plans) and all(k in plans
-                                             for k in hg.relations)
-
         def mix(w2d, y2d, n, K):
-            """z[n, h*L+l] = sum_k w2d[n, h*K+k] * y2d[n, k*L+l] -> [n, HL].
-
-            The einsum fallback runs at HIGHEST precision: on TPU the
-            default lowering multiplies in bf16 on the MXU, which made the
-            fallback diverge from the (true-f32) fused kernel by ~4% grad
-            L2 at mag-hetero scale — the round-5 hetero check regression;
-            the KERNEL was the accurate side (tpu_hetero_check.py)."""
-            if (_jax.default_backend() == "tpu" and headmix_enabled()
-                    and plans_complete and n >= headmix_min_rows()):
-                return head_mix_fused(w2d, (y2d,), H=H, B=K, A=1, L=L)
+            """z[n, h*L+l] = sum_k w2d[n, h*K+k] * y2d[n, k*L+l] -> [n, HL]
+            (an EGC head mix; k = bases for the root path, aggregator-major
+            A*B for the relation paths)."""
             return jnp.einsum("nhk,nkl->nhl", w2d.reshape(n, H, K),
                               y2d.reshape(n, K, L),
-                              precision=_jax.lax.Precision.HIGHEST
+                              precision=jax.lax.Precision.HIGHEST
                               ).reshape(n, H * L)
 
         # shared bases across ALL node types (one Dense reused per type)
-        bases_dense = nn.Dense(B * L, use_bias=False,
-                               kernel_init=einit.glorot_uniform,
-                               name="bases")
+        bases_dense = Dense(B * L, use_bias=False,
+                            kernel_init=einit.glorot_uniform,
+                            name="bases")
         bases = {t: bases_dense(x) for t, x in sorted(x_dict.items())}
 
         out = {}
         for t in sorted(x_dict):
             fan_in = x_dict[t].shape[-1]
-            w = nn.Dense(H * B, kernel_init=einit.torch_linear_kernel,
-                         bias_init=einit.torch_linear_bias(fan_in),
-                         name=f"root_comb_{t}")(x_dict[t])
+            w = Dense(H * B, kernel_init=einit.torch_linear_kernel,
+                      bias_init=einit.torch_linear_bias(fan_in),
+                      name=f"root_comb_{t}")(x_dict[t])
             n = x_dict[t].shape[0]
             out[t] = mix(w, bases[t], n, B)
 
@@ -142,20 +101,20 @@ class REGConv(nn.Module):
             n_dst = hg.num_nodes(dst)
             # [N_dst, A, B*L] stacked aggregator-major like the reference's
             # torch.stack(...).view(-1, B*A?, L) (rmag/models.py:135-139);
-            # flattening gives k-major (k = a*B + b) lanes, matching the
+            # flattening gives k-major (k = a*B + b) columns, matching the
             # rel_comb weight's (n, H, A*B) reshape
             agg = _rel_multi_aggregate(hg, key, bases[src], n_dst,
                                        self.aggrs).reshape(n_dst, A * B * L)
             fan_in = x_dict[dst].shape[-1]
-            w = nn.Dense(A * H * B, kernel_init=einit.torch_linear_kernel,
-                         bias_init=einit.torch_linear_bias(fan_in),
-                         name=f"rel_comb_{key}")(x_dict[dst])
+            w = Dense(A * H * B, kernel_init=einit.torch_linear_kernel,
+                      bias_init=einit.torch_linear_bias(fan_in),
+                      name=f"rel_comb_{key}")(x_dict[dst])
             out[dst] = out[dst] + mix(w, agg, n_dst, A * B)
 
         return out
 
 
-class REGCNet(nn.Module):
+class REGCNet(Module):
     """Hetero net (reference ``REGC``, rmag/models.py:151-212, bug fixed):
     learned embeddings for featureless node types; (L-1) x REGConv (or
     RGCNConv when use_egc=False) with ReLU+dropout; final layer ALWAYS
@@ -172,7 +131,6 @@ class REGCNet(nn.Module):
     featureless_types: Tuple[str, ...] = ()
     target_type: str = "paper"
 
-    @nn.compact
     def __call__(self, hg: HeteroGraph, *, train: bool):
         x_dict = {}
         for t in hg.node_types:
@@ -188,8 +146,8 @@ class REGCNet(nn.Module):
                             num_bases=self.bases) if self.use_egc
                     else RGCNConv(self.hidden_dim))
             x_dict = conv(hg, x_dict, train=train)
-            x_dict = {t: nn.Dropout(self.dropout,
-                                    deterministic=not train)(nn.relu(x))
+            x_dict = {t: Dropout(self.dropout,
+                                 deterministic=not train)(jax.nn.relu(x))
                       for t, x in x_dict.items()}
         x_dict = RGCNConv(self.num_classes)(hg, x_dict, train=train)
-        return nn.log_softmax(x_dict[self.target_type], axis=-1)
+        return jax.nn.log_softmax(x_dict[self.target_type], axis=-1)

@@ -5,7 +5,7 @@ at the receiver; update_i = Linear_t([agg_i_t || x_init_i_t]); then one final
 Linear across the concatenated towers. No self-loops. Requires
 in_dim == out_dim (as in all reference call sites: hidden -> hidden).
 
-TPU-first factorization: the message Linear is LINEAR in the concatenated
+Factorization: the message Linear is LINEAR in the concatenated
 inputs, so message_ij = P_i(x_i) + P_j(x_j) + b with node-level transforms
 P_i, P_j. Then
 
@@ -13,29 +13,26 @@ P_i, P_j. Then
     max-aggregate_i = P_i(x_i) + b + MAX_j P_j(x_j)       (deg_i > 0)
 
 — EXACTLY equal to the reference's per-edge form, but the edge sweep only
-touches node values (no [E, 2*it] gather / per-edge matmul), so it rides
-the fused Pallas aggregation path.
+touches node values (no [E, 2*it] gather / per-edge matmul).
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
-import flax.linen as nn
 
+from egc_tpu.nn.module import Module, Dense
 from egc_tpu.graph.structure import Graph
 from egc_tpu.nn import init as einit
 from egc_tpu.ops import segment_count
+from egc_tpu.ops.dispatch import conv_aggregate
 
 
-class MPNNConv(nn.Module):
+class MPNNConv(Module):
     out_channels: int
     aggr: str = "sum"            # "sum" | "max"
     towers: int = 4
 
-    @nn.compact
     def __call__(self, g: Graph, x, *, train: bool = False):
-        from egc_tpu.ops.dispatch import conv_aggregate
-
         n, T = x.shape[0], self.towers
         in_dim, out_dim = x.shape[-1], self.out_channels
         if in_dim % T or out_dim % T:
@@ -50,12 +47,8 @@ class MPNNConv(nn.Module):
         p_i = jnp.einsum("nti,tio->nto", xt, wm[:, :it])
         p_j = jnp.einsum("nti,tio->nto", xt, wm[:, it:])
 
-        plan = getattr(g, "kernel_plan", None)
-        if plan is not None and n == getattr(plan, "n_pad", -1):
-            deg = plan.deg
-        else:
-            deg = segment_count(g.receivers, n, mask=g.edge_mask,
-                                indices_are_sorted=True)
+        deg = segment_count(g.receivers, n, mask=g.edge_mask,
+                            indices_are_sorted=True)
         if self.aggr in ("sum", "add"):
             s = conv_aggregate(g, p_j.reshape(n, T * ot), ("sum",))[:, 0]
             agg = deg[:, None, None] * (p_i + bm) + s.reshape(n, T, ot)
@@ -73,6 +66,6 @@ class MPNNConv(nn.Module):
         upd = jnp.einsum("ntf,tfo->nto", upd_in, wu) + bu
 
         fan_in = out_dim
-        return nn.Dense(out_dim, kernel_init=einit.torch_linear_kernel,
-                        bias_init=einit.torch_linear_bias(fan_in),
-                        name="lin")(upd.reshape(n, out_dim))
+        return Dense(out_dim, kernel_init=einit.torch_linear_kernel,
+                     bias_init=einit.torch_linear_bias(fan_in),
+                     name="lin")(upd.reshape(n, out_dim))

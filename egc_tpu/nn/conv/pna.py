@@ -1,4 +1,4 @@
-"""PNA — Principal Neighbourhood Aggregation (PyG-parity, TPU-shaped).
+"""PNA — Principal Neighbourhood Aggregation (PyG-parity).
 
 Reference call sites use PyG ``PNAConv(h, h, aggregators=[mean,min,max,std],
 scalers=[identity,amplification,attenuation], deg=hist, towers=4,
@@ -14,7 +14,7 @@ divide_input=True)`` (reference ``experiments/arxiv/norm_models.py:174-182``,
 - per-tower post-MLP on [x_i || aggregated], towers concatenated, final
   Linear. No self-loops.
 
-TPU-first factorization (same trick as :mod:`.mpnn`): the pre-MLP is
+Factorization (same trick as :mod:`.mpnn`): the pre-MLP is
 pre_layers=1, i.e. a single Linear — LINEAR in [x_i || x_j] — so
 msg_ij = u_i + v_j with node-level transforms u = x@W_i + b, v = x@W_j.
 u_i is CONSTANT within receiver i's segment, hence
@@ -25,9 +25,8 @@ u_i is CONSTANT within receiver i's segment, hence
     var/std_j(u_i + v_j) = var/std_j(v_j)          (shift-invariant)
 
 — EXACTLY the per-edge form, but the edge sweep only touches node values
-(no [E, T, 2 f_in] gather or per-edge matmul), so it rides the fused
-Pallas multi-aggregate path via ``conv_aggregate`` and never materializes
-edge-level intermediates (the XLA path's memory wall at arxiv scale).
+(no [E, T, 2 f_in] gather or per-edge matmul) and runs as one
+``conv_aggregate`` call.
 Parity vs the edge-level oracle: tests/test_nn.py::test_pna_oracle.
 """
 
@@ -37,8 +36,8 @@ from typing import Tuple
 
 import numpy as np
 import jax.numpy as jnp
-import flax.linen as nn
 
+from egc_tpu.nn.module import Module, Dense
 from egc_tpu.graph.structure import Graph
 from egc_tpu.graph.transforms import in_degree
 from egc_tpu.nn import init as einit
@@ -53,7 +52,7 @@ def avg_log_degree(deg_hist) -> float:
     return float((np.log(d + 1) * hist).sum() / max(total, 1.0))
 
 
-class PNAConv(nn.Module):
+class PNAConv(Module):
     out_channels: int
     avg_log_deg: float                      # from avg_log_degree(deg_hist)
     aggregators: Tuple[str, ...] = ("mean", "min", "max", "std")
@@ -61,7 +60,6 @@ class PNAConv(nn.Module):
     towers: int = 4
     divide_input: bool = True
 
-    @nn.compact
     def __call__(self, g: Graph, x, *, train: bool = False):
         n, T = x.shape[0], self.towers
         in_dim, out_dim = x.shape[-1], self.out_channels
@@ -128,6 +126,6 @@ class PNAConv(nn.Module):
                            (T, f_out))
         out = jnp.einsum("ntf,tfo->nto", post_in, wpost) + bpost
 
-        return nn.Dense(out_dim, kernel_init=einit.torch_linear_kernel,
-                        bias_init=einit.torch_linear_bias(out_dim),
-                        name="lin")(out.reshape(n, out_dim))
+        return Dense(out_dim, kernel_init=einit.torch_linear_kernel,
+                     bias_init=einit.torch_linear_bias(out_dim),
+                     name="lin")(out.reshape(n, out_dim))

@@ -9,28 +9,28 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
-import flax.linen as nn
+import jax
 
+from egc_tpu.nn.module import Module, Dense, Dropout
 from egc_tpu.nn import init as einit
 from egc_tpu.nn.norm import MaskedBatchNorm
 
 
-class MLP(nn.Module):
+class MLP(Module):
     layer_sizes: Sequence[int]      # output sizes [l1, ..., lk]
-    act: Callable = nn.relu
+    act: Callable = jax.nn.relu
     dropout: float = 0.0
     bn_axis: str = None             # sync-BN mesh axis (optional)
 
-    @nn.compact
     def __call__(self, x, mask=None, *, train: bool):
         sizes = list(self.layer_sizes)
         for i, size in enumerate(sizes[:-1]):
             fan_in = x.shape[-1]
-            x = nn.Dense(size, kernel_init=einit.torch_linear_kernel,
-                         bias_init=einit.torch_linear_bias(fan_in))(x)
+            x = Dense(size, kernel_init=einit.torch_linear_kernel,
+                      bias_init=einit.torch_linear_bias(fan_in))(x)
             x = MaskedBatchNorm(axis_name=self.bn_axis)(x, mask, use_running_average=not train)
             x = self.act(x)
-            x = nn.Dropout(self.dropout, deterministic=not train)(x)
+            x = Dropout(self.dropout, deterministic=not train)(x)
         fan_in = x.shape[-1]
-        return nn.Dense(sizes[-1], kernel_init=einit.torch_linear_kernel,
-                        bias_init=einit.torch_linear_bias(fan_in))(x)
+        return Dense(sizes[-1], kernel_init=einit.torch_linear_kernel,
+                     bias_init=einit.torch_linear_bias(fan_in))(x)

@@ -1,7 +1,7 @@
 """Masked BatchNorm — torch.nn.BatchNorm1d semantics over valid rows only.
 
 The reference's batches are exactly-sized so plain BatchNorm1d works
-(reference ``experiments/zinc/models.py:41``); TPU batches are padded, so the
+(reference ``experiments/zinc/models.py:41``); batches here are padded, so the
 statistics must ignore padding rows or they would be diluted by zeros. This
 is correctness-critical (SURVEY §7.0).
 
@@ -16,11 +16,13 @@ from __future__ import annotations
 
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
-import flax.linen as nn
+
+from egc_tpu.nn.module import Module
 
 
-class MaskedBatchNorm(nn.Module):
+class MaskedBatchNorm(Module):
     momentum: float = 0.1
     eps: float = 1e-5
     use_scale: bool = True
@@ -28,7 +30,6 @@ class MaskedBatchNorm(nn.Module):
     dtype: Optional[jnp.dtype] = None
     axis_name: Optional[str] = None   # sync-BN across a mesh axis (psum)
 
-    @nn.compact
     def __call__(self, x, mask=None, *, use_running_average: bool):
         """x: [N, F]; mask: [N] bool or None (None = all rows valid).
 
@@ -45,8 +46,6 @@ class MaskedBatchNorm(nn.Module):
         if use_running_average:
             mean, var = ra_mean.value, ra_var.value
         else:
-            import jax
-
             xf = x.astype(jnp.float32)
             if mask is None:
                 s = jnp.sum(xf, axis=0)
@@ -74,11 +73,11 @@ class MaskedBatchNorm(nn.Module):
         y = (x.astype(jnp.float32) - mean) * jnp.reciprocal(
             jnp.sqrt(var + self.eps))
         if self.use_scale:
-            scale = self.param("scale", nn.initializers.ones, (features,),
+            scale = self.param("scale", jax.nn.initializers.ones, (features,),
                                jnp.float32)
             y = y * scale
         if self.use_bias:
-            bias = self.param("bias", nn.initializers.zeros, (features,),
+            bias = self.param("bias", jax.nn.initializers.zeros, (features,),
                               jnp.float32)
             y = y + bias
         return y.astype(self.dtype or x.dtype)

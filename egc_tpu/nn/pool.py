@@ -1,6 +1,6 @@
 """Graph-level readout pools (masked segment reductions over graph ids).
 
-TPU-native equivalents of PyG's ``global_{mean,add,max}_pool`` (used by every
+Equivalents of PyG's ``global_{mean,add,max}_pool`` (used by every
 graph-level model in the reference, e.g. ``experiments/zinc/models.py:46-53``),
 with explicit padding masks.
 """

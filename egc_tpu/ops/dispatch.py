@@ -1,811 +1,36 @@
-"""Kernel dispatch: fused Pallas multi-aggregate with a custom VJP.
+"""Aggregation entry point for the conv layers.
 
-``fused_multi_aggregate`` is a drop-in replacement for
-``egc_tpu.ops.segment.multi_aggregate`` on graphs that carry a
-``GraphKernelPlan`` (static full-graph tasks). Forward = ONE windowed
-Pallas pass producing all primitives; backward = ONE windowed Pallas pass
-over the transposed graph with packed node-level coefficients (see
-``gather_reduce.windowed_gather_reduce_bwd``). Both replace XLA's
-row-at-a-time gather/scatter loops.
-
-Aggregator assembly (mean/var/std/symnorm/self-terms) happens in plain XLA
-on node-level arrays — cheap, fused, and autodiff'd; the custom VJP wraps
-only the edge-level primitive map.
+``conv_aggregate`` is the one place a conv asks for its neighbourhood
+aggregation; it runs the XLA segment path (``ops.segment.multi_aggregate``).
+A hand-written kernel for some platform or shape would be selected here,
+from facts the code can observe, so that no conv has to know about it.
 
 Tie semantics of the max/min VJP: the full cotangent is routed to EVERY
-edge achieving the extremum — and since round 2 the XLA path's
-``_segment_max_raw`` uses the same convention (its TPU-safe packed-gather
-backward), so the two paths agree even on ties. Known deviation from the
-reference: torch_scatter's ``scatter_max`` backward routes the cotangent
-to ONE argmax winner, which matters when a segment holds exactly-equal
-values (e.g. same-type atom embeddings before the first nonlinearity) —
-there our convention sums the cotangent once per achieving edge. All
-paths agree whenever the achieving value is unique; duplicate-edge
-multigraphs would double-count either way (supported datasets are
-coalesced).
+edge achieving the extremum (``ops.segment._segment_max_raw``). Known
+deviation from the reference: torch_scatter's ``scatter_max`` backward
+routes the cotangent to ONE argmax winner, which matters when a segment
+holds exactly-equal values (e.g. same-type atom embeddings before the
+first nonlinearity) — there our convention sums the cotangent once per
+achieving edge. Both agree whenever the achieving value is unique;
+duplicate-edge multigraphs would double-count either way (supported
+datasets are coalesced).
 """
 
 from __future__ import annotations
 
-import functools
-from typing import Optional, Sequence, Tuple
-
-import numpy as np
-import jax
-import jax.numpy as jnp
-from flax import struct
-
-from egc_tpu.ops.pallas.gather_reduce import (
-    make_window_plan_np, windowed_gather_reduce, windowed_gather_reduce_bwd,
-)
-from egc_tpu.ops.segment import canonical_aggr, _var_from_moments
-
-
-@struct.dataclass
-class WindowPlanDev:
-    senders: jnp.ndarray
-    receivers: jnp.ndarray
-    cell_ptr: jnp.ndarray
-    edge_perm: jnp.ndarray          # original edge idx -> plan position
-    edge_w: Optional[jnp.ndarray] = None   # pre-permuted edge weights
-    # (plan-order); avoids a [E] jnp.take per conv call — 1-D gathers are
-    # row-at-a-time on TPU and cost several ms each at arxiv scale
-    r_blocks: int = struct.field(pytree_node=False, default=0)
-    s_blocks: int = struct.field(pytree_node=False, default=0)
-    block_rows: int = struct.field(pytree_node=False, default=0)
-    window_rows: int = struct.field(pytree_node=False, default=0)
-
-
-@struct.dataclass
-class GraphKernelPlan:
-    """Static edge layouts for the fused kernels (one per graph).
-
-    Two transpose (backward) layouts: ``bwd`` uses wide coeff windows —
-    fastest, but its VMEM footprint scales with the packed coefficient
-    width, so aggregator sets needing >4 coeff segments dispatch to
-    ``bwd_narrow`` (smaller windows) instead.
-    """
-
-    fwd: WindowPlanDev
-    bwd: WindowPlanDev              # transposed graph, wide windows
-    deg: jnp.ndarray                # [n_pad] float in-degree (valid edges)
-    bwd_narrow: Optional[WindowPlanDev] = None
-    # attention layouts: GAT rows are ~3x wider (packed Wh | logits), so
-    # the fused softmax kernels need smaller blocks to fit VMEM
-    fwd_attn: Optional[WindowPlanDev] = None
-    bwd_attn: Optional[WindowPlanDev] = None
-    # big-cell layouts for the two-phase (staged-MXU) GATv2 kernels: the
-    # per-tile [T, hcp] @ [hcp, hcp] fold only amortizes with enough edges
-    # per grid cell (~670 at this geometry vs <100 at the fwd_attn one)
-    fwd_v2: Optional[WindowPlanDev] = None
-    bwd_v2: Optional[WindowPlanDev] = None
-    n_pad: int = struct.field(pytree_node=False, default=0)
-
-
-def _attn_geometry():
-    """Attention plan geometry (block_rows, window_rows) for the forward
-    and backward (transpose) layouts. Power-of-two only (the plan n_pad
-    gate uses max() as the alignment). Overridable for hardware tuning via
-    EGC_TPU_ATTN_GEOM="FBRxFWR[,BBRxBWR]" (backward defaults to forward).
-    """
-    import os
-    env = os.environ.get("EGC_TPU_ATTN_GEOM")
-    if not env:
-        # fwd block 1024: the expanded-layout fwd streams 512-lane rows
-        # and keeps a 512-lane stationary block — 2048-row blocks exceed
-        # the 16 MB VMEM scoped limit by 2 MB. bwd windows 512: the
-        # transpose pass streams 768-lane coeff rows. Cell count is
-        # irrelevant (the sweep is per-edge-bound, profile_gat matrix).
-        return (1024, 1024), (1024, 512)
-    parts = env.split(",")
-
-    def parse(p):
-        br, wr = p.lower().split("x")
-        return (int(br), int(wr))
-
-    f = parse(parts[0])
-    b = parse(parts[1]) if len(parts) > 1 else f
-    return f, b
-
-
-def build_kernel_plan(
-    senders: np.ndarray,
-    receivers: np.ndarray,
-    num_nodes: int,
-    *,
-    edge_mask: Optional[np.ndarray] = None,
-    fwd_block_rows: int = 2048,
-    fwd_window_rows: int = 4096,
-    bwd_block_rows: int = 4096,
-    bwd_window_rows: int = 2048,
-    bwd_narrow_window_rows: Optional[int] = 512,
-    attention: bool = True,
-    has_padding_row: bool = False,
-    keep_masked_edges: bool = False,
-    edge_weight: Optional[np.ndarray] = None,
-    to_device: bool = True,
-) -> GraphKernelPlan:
-    """Host-side plan builder (call once per static graph).
-
-    ``has_padding_row``: the caller guarantees ``num_nodes`` already
-    includes padding rows (batched-loader budgets), so the plan may land
-    exactly on ``round_up(num_nodes, align)`` instead of reserving an
-    extra aligned block.
-
-    ``keep_masked_edges``: keep the edge arrays budget-static by
-    REDIRECTING masked edges to the shadow row ``n_pad - 1`` (beyond every
-    model row) instead of dropping them. Their contributions then land in
-    rows the caller slices away — exact parity with the XLA masked path in
-    BOTH passes. (Pointing masked edges at an in-range padding row is NOT
-    safe: thousands of duplicate pad->pad self-loops inflate the pad row's
-    forward aggregates and, through the max/min tie VJP, amplify any
-    nonzero pad-row cotangent by the duplicate count — enough to NaN a
-    training run within one epoch.)
-
-    ``to_device=False`` keeps plan leaves as numpy (loader prefetch
-    threads must not issue device puts — the caller's single
-    ``jax.tree.map(jnp.asarray, ...)`` moves everything at once).
-    """
-    align = max(fwd_block_rows, fwd_window_rows, bwd_block_rows,
-                bwd_window_rows, bwd_narrow_window_rows or 0)
-    if has_padding_row and not keep_masked_edges:
-        n_pad = ((num_nodes + align - 1) // align) * align
-    else:
-        # reserve at least one aligned block beyond num_nodes: padded /
-        # redirected edges need an out-of-range target row
-        n_pad = ((num_nodes + align) // align) * align
-
-    if edge_mask is not None:
-        if keep_masked_edges:
-            senders = np.where(edge_mask, senders, n_pad - 1).astype(np.int32)
-            receivers = np.where(edge_mask, receivers,
-                                 n_pad - 1).astype(np.int32)
-            kept = np.arange(len(senders))
-        else:
-            senders = senders[edge_mask]
-            receivers = receivers[edge_mask]
-            kept = np.where(edge_mask)[0]
-    else:
-        kept = np.arange(len(senders))
-
-    fplan = make_window_plan_np(senders, receivers, n_pad,
-                                block_rows=fwd_block_rows,
-                                window_rows=fwd_window_rows)
-    bplan = make_window_plan_np(receivers, senders, n_pad,
-                                block_rows=bwd_block_rows,
-                                window_rows=bwd_window_rows)
-    assert fplan["n_pad"] == n_pad and bplan["n_pad"] == n_pad
-    bplan_narrow = None
-    if bwd_narrow_window_rows:
-        bplan_narrow = make_window_plan_np(
-            receivers, senders, n_pad, block_rows=bwd_block_rows,
-            window_rows=bwd_narrow_window_rows)
-        assert bplan_narrow["n_pad"] == n_pad
-    fplan_attn = bplan_attn = None
-    fplan_v2 = bplan_v2 = None
-    fgeom, bgeom = _attn_geometry()
-    attn_align = max(fgeom + bgeom)
-    if attention and n_pad % attn_align == 0:
-        fplan_attn = make_window_plan_np(senders, receivers, n_pad,
-                                         block_rows=fgeom[0],
-                                         window_rows=fgeom[1])
-        bplan_attn = make_window_plan_np(receivers, senders, n_pad,
-                                         block_rows=bgeom[0],
-                                         window_rows=bgeom[1])
-        assert fplan_attn["n_pad"] == n_pad and bplan_attn["n_pad"] == n_pad
-    if attention and n_pad % 4096 == 0:
-        # two-phase GATv2 layouts (see GraphKernelPlan): fwd shares its
-        # geometry with the fwd-direction backward pass (the stationary
-        # coeff block is 3*hcp lanes wide -> block_rows 2048); the
-        # transpose pass streams 3*hcp coeff WINDOWS -> window_rows 2048.
-        # With the default gather-reduce geometry these coincide with the
-        # fwd/bwd plans — reuse them (host build AND device arrays).
-        fplan_v2 = (fplan if (fwd_block_rows, fwd_window_rows) ==
-                    (2048, 4096) else
-                    make_window_plan_np(senders, receivers, n_pad,
-                                        block_rows=2048, window_rows=4096))
-        bplan_v2 = (bplan if (bwd_block_rows, bwd_window_rows) ==
-                    (4096, 2048) else
-                    make_window_plan_np(receivers, senders, n_pad,
-                                        block_rows=4096, window_rows=2048))
-        assert fplan_v2["n_pad"] == n_pad and bplan_v2["n_pad"] == n_pad
-
-    deg = np.zeros(n_pad, np.float32)
-    np.add.at(deg, receivers, 1.0)
-
-    _as = jnp.asarray if to_device else np.asarray
-
-    def to_dev(p):
-        ew = None
-        if edge_weight is not None:
-            ew = _as(
-                np.asarray(edge_weight)[kept[p["perm"]]].astype(np.float32))
-        return WindowPlanDev(
-            senders=_as(p["senders"]),
-            receivers=_as(p["receivers"]),
-            cell_ptr=_as(p["cell_ptr"]),
-            edge_perm=_as(kept[p["perm"]].astype(np.int32)),
-            edge_w=ew,
-            r_blocks=p["R"], s_blocks=p["S"],
-            block_rows=p["block_rows"], window_rows=p["window_rows"])
-
-    dev_fwd, dev_bwd = to_dev(fplan), to_dev(bplan)
-    return GraphKernelPlan(
-        fwd=dev_fwd, bwd=dev_bwd,
-        bwd_narrow=to_dev(bplan_narrow) if bplan_narrow else None,
-        fwd_attn=to_dev(fplan_attn) if fplan_attn else None,
-        bwd_attn=to_dev(bplan_attn) if bplan_attn else None,
-        fwd_v2=(None if fplan_v2 is None else
-                dev_fwd if fplan_v2 is fplan else to_dev(fplan_v2)),
-        bwd_v2=(None if bplan_v2 is None else
-                dev_bwd if bplan_v2 is bplan else to_dev(bplan_v2)),
-        deg=_as(deg), n_pad=n_pad)
-
-
-def make_window_plan_jax(senders, receivers, n_pad: int, *,
-                         block_rows: int, window_rows: int,
-                         num_out_pad: Optional[int] = None
-                         ) -> WindowPlanDev:
-    """Device-side (jit-traceable) window-plan construction — the jax
-    counterpart of ``gather_reduce.make_window_plan_np``: edges sorted by
-    (receiver_block, sender_window, receiver) via two stable argsorts,
-    cell ranges by searchsorted. ``n_pad`` / ``num_out_pad`` must already
-    be geometry-aligned and any masked edges redirected to the padding
-    row (the device-sampler output convention)."""
-    n_out_pad = n_pad if num_out_pad is None else num_out_pad
-    if n_pad % window_rows or n_out_pad % block_rows:
-        raise ValueError("n_pad must be aligned to the plan geometry")
-    r_blocks = n_out_pad // block_rows
-    s_blocks = n_pad // window_rows
-    senders = senders.astype(jnp.int32)
-    receivers = receivers.astype(jnp.int32)
-    cell = (receivers // block_rows) * s_blocks + senders // window_rows
-    # ONE argsort on the cell key: the kernels only need cell GROUPING
-    # (each cell's edges contiguous); the host plan's within-cell
-    # receiver order is determinism/locality polish, not correctness —
-    # and in-jit sorts are the cost that decides this path's viability
-    perm = jnp.argsort(cell, stable=True)
-    cell_sorted = cell[perm]
-    cell_ptr = jnp.searchsorted(
-        cell_sorted, jnp.arange(r_blocks * s_blocks + 1)).astype(jnp.int32)
-    return WindowPlanDev(
-        senders=senders[perm], receivers=receivers[perm],
-        cell_ptr=cell_ptr, edge_perm=perm.astype(jnp.int32), edge_w=None,
-        r_blocks=r_blocks, s_blocks=s_blocks,
-        block_rows=block_rows, window_rows=window_rows)
-
-
-def build_kernel_plan_jax(
-    senders, receivers, n_pad: int, *,
-    fwd_block_rows: int = 2048, fwd_window_rows: int = 4096,
-    bwd_block_rows: int = 4096, bwd_window_rows: int = 2048,
-    bwd_narrow_window_rows: Optional[int] = 512,
-) -> GraphKernelPlan:
-    """Jit-traceable kernel-plan builder for DYNAMIC graphs (one plan per
-    sampled batch, built on device inside the train step — no host plan
-    build, no plan transfer). Preconditions: ``n_pad`` aligned to every
-    geometry in use AND STRICTLY GREATER than the model's node-row count
-    (reserve one aligned block, the host ``build_kernel_plan``
-    convention), with padded/masked edges redirected to ``n_pad - 1``.
-    Because the pad row lies beyond the model rows, ``conv_aggregate``
-    zero-pads values up to ``n_pad`` and slices outputs back EVERY layer
-    — so the duplicate pad->pad self-loops aggregate zeros regardless of
-    depth (an in-range pad row would instead compound bias/BN values by
-    the pad-edge count per layer through sum-family aggregators — the
-    hazard the host builder's ``has_padding_row`` note documents). One
-    argsort + searchsorted per layout (~ms at 100k-edge budgets)."""
-    align = max(fwd_block_rows, fwd_window_rows, bwd_block_rows,
-                bwd_window_rows, bwd_narrow_window_rows or 0)
-    if n_pad % align:
-        raise ValueError(f"n_pad {n_pad} not aligned to {align}")
-    fwd = make_window_plan_jax(senders, receivers, n_pad,
-                               block_rows=fwd_block_rows,
-                               window_rows=fwd_window_rows)
-    bwd = make_window_plan_jax(receivers, senders, n_pad,
-                               block_rows=bwd_block_rows,
-                               window_rows=bwd_window_rows)
-    bwd_narrow = None
-    if bwd_narrow_window_rows:
-        bwd_narrow = make_window_plan_jax(
-            receivers, senders, n_pad, block_rows=bwd_block_rows,
-            window_rows=bwd_narrow_window_rows)
-    deg = jax.ops.segment_sum(jnp.ones(receivers.shape[0], jnp.float32),
-                              receivers.astype(jnp.int32),
-                              num_segments=n_pad)
-    return GraphKernelPlan(fwd=fwd, bwd=bwd, bwd_narrow=bwd_narrow,
-                           deg=deg, n_pad=n_pad)
-
-
-def wide_plan_geometry(aggrs: Sequence[str]) -> dict:
-    """build_kernel_plan geometry kwargs tuned for a known aggregator set
-    on WIDE (F=256) graphs. The wide kernels single-buffer accumulators in
-    scratch, so block_rows is VMEM-bounded by n_prims — and window/coeff
-    RESTREAMING traffic scales with r_blocks = n_pad/block_rows (the mag
-    h352 profile measured the fwd sweep ~bandwidth-bound on it: 275 GB of
-    window re-streams at block 2048 over 741k rows). Single-primitive
-    sets afford 8192-row blocks (fwd scratch 8 MB; bwd without the
-    stationary vals block 8 MB) — 4x less restreaming."""
-    import os
-    aggrs = tuple(canonical_aggr(a) for a in aggrs)
-    prims, nsegs = _plan_prims(aggrs)
-    if len(prims) == 1 and not _needs_v(prims):
-        # K=1 coeff streams (256 lanes) fit 2048-row windows even at
-        # 8192-row gradient blocks (12 MB); 512-row windows measured
-        # SLOWER (4x the cells: mag bwd 197 -> 220 ms/layer)
-        return dict(fwd_block_rows=8192, fwd_window_rows=2048,
-                    bwd_block_rows=8192, bwd_window_rows=2048,
-                    bwd_narrow_window_rows=None)
-    if len(prims) <= 3 and os.environ.get("EGC_TPU_WIDE_GEOM3") == "1":
-        # probe geometry: halves fwd window restreaming (r_blocks 84->42
-        # at arxiv scale) at the cost of 2x more, thinner cells
-        return dict(fwd_block_rows=4096, fwd_window_rows=1024)
-    return {}
-
-
-@struct.dataclass
-class BipartiteKernelPlan:
-    """Per-relation kernel plan for hetero (typed) graphs: senders index a
-    SOURCE-type node space, receivers a distinct DESTINATION-type space.
-    Plays the reference's per-relation SpMM role
-    (``experiments/rmag/models.py:32-148``) on the fused windowed kernels.
-    """
-
-    fwd: WindowPlanDev              # windows over src rows, blocks over dst
-    bwd: WindowPlanDev              # transpose: windows dst, blocks src
-    deg: jnp.ndarray                # [n_dst_pad] valid in-degree
-    n_src_pad: int = struct.field(pytree_node=False, default=0)
-    n_dst_pad: int = struct.field(pytree_node=False, default=0)
-
-
-def build_bipartite_kernel_plan(
-    senders: np.ndarray,
-    receivers: np.ndarray,
-    num_src: int,
-    num_dst: int,
-    *,
-    edge_mask: Optional[np.ndarray] = None,
-    fwd_block_rows: int = 4096,
-    fwd_window_rows: int = 2048,
-    bwd_block_rows: int = 4096,
-    bwd_window_rows: int = 1024,
-    keep_masked_edges: bool = False,
-) -> BipartiteKernelPlan:
-    """Host-side per-relation plan (static per hetero dataset).
-
-    Default fwd geometry (4096-row dst blocks, 2048-row src windows):
-    larger output blocks halve the src-window restreaming traffic
-    (r_blocks x src_pad x F bytes) — measured +4% on the mag-scale hetero
-    step (scripts/tpu_hetero_check.py geo probe, r3); the {mean,max}
-    2-primitive sets fit double-buffered 4096-row output blocks in VMEM.
-
-    Masked edges are DROPPED by default (plans carry their own edge
-    arrays; hetero full-graph tasks never re-batch, so no static edge
-    budget is needed). ``keep_masked_edges`` instead REDIRECTS them to
-    shadow src/dst rows beyond every real row (same contract as
-    ``build_kernel_plan``) so edge-array shapes stay equal across
-    same-budget graphs — required for stacking per-device plans for
-    shard_map (parallel.hetero_partition).
-    """
-    senders = np.asarray(senders)
-    receivers = np.asarray(receivers)
-
-    def round_up(x, m):
-        return ((x + m - 1) // m) * m
-
-    if keep_masked_edges:
-        # reserve shadow rows (num+1 before rounding guarantees the last
-        # padded row is beyond every real row)
-        num_src += 1
-        num_dst += 1
-    n_src_pad = round_up(num_src, max(fwd_window_rows, bwd_block_rows))
-    n_dst_pad = round_up(num_dst, max(fwd_block_rows, bwd_window_rows))
-    if edge_mask is not None:
-        edge_mask = np.asarray(edge_mask)
-        if keep_masked_edges:
-            senders = np.where(edge_mask, senders,
-                               n_src_pad - 1).astype(np.int32)
-            receivers = np.where(edge_mask, receivers,
-                                 n_dst_pad - 1).astype(np.int32)
-        else:
-            senders = senders[edge_mask]
-            receivers = receivers[edge_mask]
-    fplan = make_window_plan_np(
-        senders, receivers, n_src_pad, block_rows=fwd_block_rows,
-        window_rows=fwd_window_rows, num_out_nodes=n_dst_pad)
-    bplan = make_window_plan_np(
-        receivers, senders, n_dst_pad, block_rows=bwd_block_rows,
-        window_rows=bwd_window_rows, num_out_nodes=n_src_pad)
-    assert fplan["n_pad"] == n_src_pad and fplan["n_out_pad"] == n_dst_pad
-    assert bplan["n_pad"] == n_dst_pad and bplan["n_out_pad"] == n_src_pad
-    deg = np.zeros(n_dst_pad, np.float32)
-    np.add.at(deg, receivers, 1.0)
-
-    def to_dev(p):
-        return WindowPlanDev(
-            senders=jnp.asarray(p["senders"]),
-            receivers=jnp.asarray(p["receivers"]),
-            cell_ptr=jnp.asarray(p["cell_ptr"]),
-            edge_perm=jnp.asarray(p["perm"].astype(np.int32)),
-            r_blocks=p["R"], s_blocks=p["S"],
-            block_rows=p["block_rows"], window_rows=p["window_rows"])
-
-    return BipartiteKernelPlan(
-        fwd=to_dev(fplan), bwd=to_dev(bplan), deg=jnp.asarray(deg),
-        n_src_pad=n_src_pad, n_dst_pad=n_dst_pad)
-
-
-def bipartite_multi_aggregate(
-    x_src: jnp.ndarray,                # [n_src(<=n_src_pad), F]
-    plan: BipartiteKernelPlan,
-    aggrs: Sequence[str],
-) -> jnp.ndarray:
-    """Fused per-relation aggregation: returns [n_dst_pad, A, F_pad-free].
-
-    Matches the XLA masked segment ops' semantics (empty segments -> 0).
-    Supports sum/mean/max/min (the hetero convs' aggregators). Rows are
-    padded to the plan's src size, features to a lane multiple; callers
-    slice the destination rows they need.
-    """
-    aggrs = tuple(canonical_aggr(a) for a in aggrs)
-    n, f = x_src.shape
-    if n > plan.n_src_pad:
-        raise ValueError(f"x_src rows {n} exceed plan n_src_pad "
-                         f"{plan.n_src_pad}")
-    f_pad = ((f + 127) // 128) * 128
-    x = jnp.pad(x_src, ((0, plan.n_src_pad - n), (0, f_pad - f)))
-    if f_pad > 128:
-        # column-group split (see conv_aggregate): VMEM budgets are sized
-        # for 128-wide windows; aggregation is column-independent
-        out = jnp.concatenate(
-            [bipartite_multi_aggregate(x[:, k:k + 128], plan, aggrs)
-             for k in range(0, f_pad, 128)], axis=2)
-        return out[:, :, :f]
-
-    prims = []
-    if set(aggrs) & {"sum", "mean"}:
-        prims.append("sum")
-    if "max" in aggrs:
-        prims.append("max")
-    if "min" in aggrs:
-        prims.append("min")
-    unsupported = set(aggrs) - {"sum", "mean", "max", "min"}
-    if unsupported:
-        raise ValueError(f"bipartite aggregation does not support "
-                         f"{sorted(unsupported)}")
-
-    outs = _fused_primitives(plan.fwd, plan.bwd, tuple(prims), None, None)(x)
-    p = dict(zip(prims, outs))
-    deg = plan.deg[:, None]
-    res = []
-    for a in aggrs:
-        if a == "sum":
-            out = p["sum"]
-        elif a == "mean":
-            out = p["sum"] / jnp.maximum(deg, 1.0)
-        elif a == "max":
-            out = jnp.where(deg > 0, p["max"], 0.0)
-        else:  # min
-            out = jnp.where(deg > 0, p["min"], 0.0)
-        res.append(out)
-    out = jnp.stack(res, axis=1)
-    return out[:, :, :f] if f_pad != f else out
-
-
-def _plan_prims(aggrs: Tuple[str, ...]) -> Tuple[Tuple[str, ...], int]:
-    """(edge-level primitives, backward coeff segment count) for a
-    CANONICAL aggregator tuple."""
-    needs = set(aggrs)
-    prims = []
-    if needs & {"sum", "mean", "var", "std"}:
-        prims.append("sum")
-    if "symnorm" in needs:
-        prims.append("wsum")
-    if needs & {"var", "std"}:
-        prims.append("sumsq")
-    if "max" in needs:
-        prims.append("max")
-    if "min" in needs:
-        prims.append("min")
-    nsegs = (("sum" in prims) + ("wsum" in prims) + ("sumsq" in prims)
-             + 2 * ("max" in prims) + 2 * ("min" in prims))
-    return tuple(prims), nsegs
-
-
-_VMEM_BUDGET = 15 << 20     # bytes; v5e scoped VMEM limit is 16 MB
-
-
-def _wide_bwd_plan(plan: GraphKernelPlan, nsegs: int, f: int = 256,
-                   needs_v: bool = True):
-    """The transpose plan the wide backward should run on: the LARGEST
-    window whose double-buffered nsegs*F coeff stream + stationary vals
-    (only when a segment consumes the forward input) + gradient scratch
-    fit VMEM (bigger windows -> fewer grid cells -> fewer chunk-boundary
-    fragments). Small aggregator sets (e.g. the mag symnorm-only config,
-    K=1) fit the regular 2048-row windows; K=4 (arxiv h136) needs the
-    512-row narrow layout."""
-    for bw in (plan.bwd, plan.bwd_narrow):
-        if bw is None:
-            continue
-        bwd_bytes = (2 * bw.window_rows * nsegs
-                     + (1 + needs_v) * bw.block_rows) * f * 4
-        if bwd_bytes <= _VMEM_BUDGET:
-            return bw
-    return None
-
-
-def _needs_v(prims) -> bool:
-    return bool({"sumsq", "max", "min"} & set(prims))
-
-
-def _wide_fits(plan: GraphKernelPlan, aggrs: Sequence[str],
-               f: int = 256) -> bool:
-    """True when the wide-lane (single-sweep F=256) kernels fit VMEM for
-    this aggregator set at the plan's geometry (see the wide-variant
-    comment in gather_reduce.py). fwd: double-buffered window + one
-    scratch accumulator per primitive. bwd: see _wide_bwd_plan."""
-    aggrs = tuple(canonical_aggr(a) for a in aggrs)
-    prims, nsegs = _plan_prims(aggrs)
-    fwd_bytes = (2 * plan.fwd.window_rows
-                 + len(prims) * plan.fwd.block_rows) * f * 4
-    return fwd_bytes <= _VMEM_BUDGET and \
-        _wide_bwd_plan(plan, nsegs, f, _needs_v(prims)) is not None
-
-
-def fused_multi_aggregate(
-    vals: jnp.ndarray,                 # [n_pad, F], F multiple of 128
-    plan: GraphKernelPlan,
-    aggrs: Sequence[str],
-    *,
-    include_self: bool = False,
-    symnorm_edge_w: Optional[jnp.ndarray] = None,  # [E] ORIGINAL edge order
-    symnorm_self_w: Optional[jnp.ndarray] = None,  # [n_pad]
-    wide: bool = False,
-    stacked: bool = True,
-) -> jnp.ndarray:
-    """Plan-based fused multi-aggregate: returns [n_pad, A, F] (or a tuple
-    of A [n_pad, F] arrays when ``stacked=False`` — the fused head-mix
-    kernel consumes the parts directly, skipping the stack).
-
-    Matches ``multi_aggregate`` semantics exactly (empty segments -> 0,
-    min = -max(-x) equivalence, var/std eps, virtual self-loops).
-
-    ``wide``: single-sweep mode for F = 256 (scratch-accumulator kernels;
-    gate with ``_wide_fits``). The transpose pass picks the largest
-    window layout whose K*F-lane coeff stream fits VMEM
-    (``_wide_bwd_plan``: regular 2048-row windows for K <= 2, the
-    narrow 512-row layout for K <= 4).
-    """
-    aggrs = tuple(canonical_aggr(a) for a in aggrs)
-    prims, nsegs = _plan_prims(aggrs)
-
-    if wide:
-        bwd_plan = _wide_bwd_plan(plan, nsegs, needs_v=_needs_v(prims))
-        if bwd_plan is None:
-            raise ValueError("wide mode: no transpose plan fits VMEM for "
-                             f"{nsegs} coeff segments")
-    else:
-        # coeff segments the backward pass will stream: wide bwd windows
-        # are only VMEM-safe up to 4 segments (GraphKernelPlan docstring)
-        bwd_plan = plan.bwd if (nsegs <= 4 or plan.bwd_narrow is None) \
-            else plan.bwd_narrow
-
-    ew_f = ew_b = None
-    if "wsum" in prims:
-        if plan.fwd.edge_w is not None:
-            # pre-permuted at plan build (the fast path for full graphs)
-            ew_f, ew_b = plan.fwd.edge_w, bwd_plan.edge_w
-        elif symnorm_edge_w is None:
-            raise ValueError("symnorm requires symnorm_edge_w")
-        else:
-            # The fused VJP treats edge weights as graph CONSTANTS (zero
-            # cotangent), unlike the XLA path which differentiates through
-            # them. stop_gradient makes that explicit so a future
-            # learned-edge-weight caller sees a stopped gradient rather
-            # than silently training with zeros.
-            symnorm_edge_w = jax.lax.stop_gradient(symnorm_edge_w)
-            ew_f = jnp.take(symnorm_edge_w, plan.fwd.edge_perm)
-            ew_b = jnp.take(symnorm_edge_w, bwd_plan.edge_perm)
-
-    prim_outs = _fused_primitives(plan.fwd, bwd_plan, prims, ew_f, ew_b,
-                                  wide=wide)(vals)
-    p = dict(zip(prims, prim_outs))
-
-    # ---- differentiable node-level assembly -----------------------------
-    deg = plan.deg[:, None]
-    outs = []
-    for a in aggrs:
-        if a == "sum":
-            out = p["sum"] + vals if include_self else p["sum"]
-        elif a == "mean":
-            if include_self:
-                out = (p["sum"] + vals) / jnp.maximum(deg + 1.0, 1.0)
-            else:
-                out = p["sum"] / jnp.maximum(deg, 1.0)
-        elif a == "symnorm":
-            out = p["wsum"]
-            if symnorm_self_w is not None:
-                out = out + symnorm_self_w[:, None] * vals
-        elif a in ("var", "std"):
-            if include_self:
-                d = jnp.maximum(deg + 1.0, 1.0)
-                m = (p["sum"] + vals) / d
-                msq = (p["sumsq"] + vals * vals) / d
-            else:
-                d = jnp.maximum(deg, 1.0)
-                m = p["sum"] / d
-                msq = p["sumsq"] / d
-            # single materialized var: see segment._var_from_moments
-            out = _var_from_moments(msq, m)
-            if a == "std":
-                out = jnp.sqrt(jax.nn.relu(out) + 1e-5)
-        elif a == "max":
-            has = deg > 0
-            out = jnp.where(has, p["max"], 0.0)
-            if include_self:
-                out = jnp.maximum(jnp.where(has, p["max"], vals), vals)
-        elif a == "min":
-            has = deg > 0
-            out = jnp.where(has, p["min"], 0.0)
-            if include_self:
-                out = jnp.minimum(jnp.where(has, p["min"], vals), vals)
-        else:  # pragma: no cover
-            raise ValueError(a)
-        outs.append(out)
-    return jnp.stack(outs, axis=1) if stacked else tuple(outs)
-
-
-@functools.lru_cache(maxsize=None)
-def _fused_primitives_cached(prims: Tuple[str, ...], wide: bool = False):
-    """custom_vjp factory keyed by the primitive set (plans/weights are
-    passed as residual-closure via the wrapper below)."""
-
-    def impl(vals, fwd, bwd, ew_f, ew_b):
-        return windowed_gather_reduce(
-            vals, fwd.senders, fwd.receivers, fwd.cell_ptr,
-            r_blocks=fwd.r_blocks, s_blocks=fwd.s_blocks,
-            block_rows=fwd.block_rows,
-            window_rows=fwd.window_rows,
-            ops=prims, edge_w=ew_f, scratch_acc=wide)
-
-    @jax.custom_vjp
-    def f(vals, fwd, bwd, ew_f, ew_b):
-        return impl(vals, fwd, bwd, ew_f, ew_b)
-
-    def f_fwd(vals, fwd, bwd, ew_f, ew_b):
-        outs = impl(vals, fwd, bwd, ew_f, ew_b)
-        p = dict(zip(prims, outs))
-        residual = (vals, fwd, bwd, ew_b, p.get("max"), p.get("min"))
-        return outs, residual
-
-    def f_bwd(residual, cts):
-        vals, fwd, bwd, ew_b, mx, mn = residual
-        ct = dict(zip(prims, cts))
-        segs, cols = [], []
-        if "sum" in ct:
-            segs.append("c_sum")
-            cols.append(ct["sum"])
-        if "wsum" in ct:
-            segs.append("c_wsum")
-            cols.append(ct["wsum"])
-        if "sumsq" in ct:
-            segs.append("c_sumsq2")
-            cols.append(2.0 * ct["sumsq"])
-        if "max" in ct:
-            segs.extend(["mx", "c_max"])
-            cols.extend([mx, ct["max"]])
-        if "min" in ct:
-            segs.extend(["mn", "c_min"])
-            cols.extend([mn, ct["min"]])
-        coeff = jnp.concatenate(cols, axis=1)
-        d_vals = windowed_gather_reduce_bwd(
-            coeff, vals, bwd.senders, bwd.receivers,
-            bwd.cell_ptr, segs=tuple(segs),
-            r_blocks=bwd.r_blocks, s_blocks=bwd.s_blocks,
-            block_rows=bwd.block_rows,
-            window_rows=bwd.window_rows,
-            edge_w=ew_b if "c_wsum" in segs else None,
-            scratch_acc=wide)
-        # plan / edge-weight args are graph constants: zero cotangents
-        # (float0 for integer leaves, per the custom_vjp contract).
-        def zero_ct(x):
-            if x is None:
-                return None
-            if jnp.issubdtype(x.dtype, jnp.floating):
-                return jnp.zeros_like(x)
-            return np.zeros(x.shape, jax.dtypes.float0)
-
-        return (d_vals, jax.tree.map(zero_ct, fwd),
-                jax.tree.map(zero_ct, bwd), zero_ct(ew_b), zero_ct(ew_b))
-
-    f.defvjp(f_fwd, f_bwd)
-    return f
-
-
-def _fused_primitives(fwd_plan, bwd_plan, prims, ew_f, ew_b, *,
-                      wide: bool = False):
-    fn = _fused_primitives_cached(tuple(prims), wide)
-    return lambda vals: fn(vals, fwd_plan, bwd_plan, ew_f, ew_b)
+from egc_tpu.ops.segment import multi_aggregate
 
 
 def conv_aggregate(g, x, aggrs, *, include_self: bool = False,
-                   symnorm_edge_w=None, symnorm_self_w=None,
-                   stacked: bool = True):
-    """Unified aggregation entry point for conv layers: dispatches to the
-    fused Pallas path when the graph carries a kernel plan and we are on
-    TPU; otherwise the XLA segment path. Returns [N, A, F] in the order of
-    ``aggrs`` (or a tuple of A [N, F] arrays when ``stacked=False``).
+                   symnorm_edge_w=None, symnorm_self_w=None):
+    """Aggregate node values ``x`` [N, F] over the in-edges of graph ``g``:
+    returns [N, A, F] in the order of ``aggrs``.
 
-    Unaligned feature widths (the reference's tuned configs are mostly not
-    lane multiples: arxiv EGC-M h136, zinc h168/h124, hiv h296/h224, code
-    h300/h304 — BASELINE.md) are zero-padded up to the next multiple of 128
-    and sliced back after aggregation. Every supported aggregator is
-    column-independent, so the pad columns never mix into real ones.
+    Edges arrive sorted by receiver (``graph.transforms.coalesce_np``);
+    ``multi_aggregate`` passes that hint to XLA only when no edge mask is
+    given.
     """
-    import jax as _jax
-
-    from egc_tpu.ops.segment import multi_aggregate
-
-    plan = getattr(g, "kernel_plan", None)
-    n, f = x.shape
-    if (plan is not None and n <= getattr(plan, "n_pad", -1)
-            and _jax.default_backend() == "tpu"):
-        n_extra = plan.n_pad - n
-        if n_extra:
-            # loader plans reserve a shadow block beyond the node budget
-            # (masked edges are redirected there — see build_kernel_plan);
-            # pad the rows up and slice the model rows back afterwards
-            x = jnp.pad(x, ((0, n_extra), (0, 0)))
-            if symnorm_self_w is not None:
-                symnorm_self_w = jnp.pad(symnorm_self_w, (0, n_extra))
-        f_pad = ((f + 127) // 128) * 128
-        if f_pad != f:
-            x = jnp.pad(x, ((0, 0), (0, f_pad - f)))
-        if f_pad > 128:
-            # column-group split: aggregation is column-independent, so
-            # lane groups run as separate edge sweeps. 256-lane groups use
-            # the WIDE kernels (single sweep, scratch accumulators) when
-            # the aggregator set fits VMEM — one loop base instead of two
-            # for the reference's unaligned tuned widths (arxiv h136, hiv
-            # h224, mag h352). Remaining lanes fall back to proven 128-wide
-            # passes (Pallas's double-buffered outputs OOM at F >= 256:
-            # arxiv h136 would need ~20 MB at the production geometry).
-            wide_ok = _wide_fits(plan, aggrs)
-            outs = []
-            k = 0
-            while k < f_pad:
-                w = 256 if (wide_ok and f_pad - k >= 256) else 128
-                outs.append(fused_multi_aggregate(
-                    x[:, k:k + w], plan, aggrs,
-                    include_self=include_self,
-                    symnorm_edge_w=symnorm_edge_w,
-                    symnorm_self_w=symnorm_self_w,
-                    wide=(w == 256), stacked=stacked))
-                k += w
-            if not stacked:
-                parts = (tuple(jnp.concatenate([o[a] for o in outs], axis=1)
-                               for a in range(len(aggrs)))
-                         if len(outs) > 1 else outs[0])
-            else:
-                out = (jnp.concatenate(outs, axis=2) if len(outs) > 1
-                       else outs[0])
-        else:
-            out = fused_multi_aggregate(
-                x, plan, aggrs, include_self=include_self,
-                symnorm_edge_w=symnorm_edge_w, symnorm_self_w=symnorm_self_w,
-                stacked=stacked)
-            if not stacked:
-                parts = out
-        if not stacked:
-            if n_extra:
-                parts = tuple(p[:n] for p in parts)
-            return (tuple(p[:, :f] for p in parts) if f_pad != f
-                    else parts)
-        if n_extra:
-            out = out[:n]
-        return out[:, :, :f] if f_pad != f else out
-    out = multi_aggregate(
+    return multi_aggregate(
         x, g.senders, g.receivers, aggrs, edge_mask=g.edge_mask,
         include_self=include_self, symnorm_edge_w=symnorm_edge_w,
         symnorm_self_w=symnorm_self_w, indices_are_sorted=True)
-    return out if stacked else tuple(
-        out[:, a] for a in range(len(aggrs)))

@@ -1,6 +1,6 @@
 """Segment (neighborhood) reductions — the framework's core primitive.
 
-These are the TPU-native equivalents of the reference's native dependencies
+These are the JAX equivalents of the reference's native dependencies
 ``torch_scatter.scatter(..., reduce=...)`` and ``torch_sparse.matmul(adj_t,
 x, reduce=...)`` (reference ``experiments/layers.py:201-225``,
 ``experiments/optimized_layers.py:215-278``). Semantics matched exactly:
@@ -12,7 +12,7 @@ x, reduce=...)`` (reference ``experiments/layers.py:201-225``,
   sqrt(relu(var) + 1e-5)`` (reference ``experiments/layers.py:201-216``);
 - ``symnorm`` is a weighted sum with GCN symmetric-norm weights.
 
-TPU-first deviation: self-loops are **virtual**. Instead of growing the edge
+Deviation: self-loops are **virtual**. Instead of growing the edge
 list (PyG ``add_remaining_self_loops``), the self contribution is folded
 analytically: e.g. mean-with-self = (sum_neighbors + x_i) / (deg_i + 1).
 Exactly equivalent for graphs without pre-existing self-loops, with static
@@ -21,8 +21,8 @@ shapes and one less gather per edge.
 ``multi_aggregate`` evaluates several aggregators in ONE pass over the edges
 (single gather, shared partial sums) — the paper's "aggregator fusion"
 (arXiv 2104.01481), which the reference deliberately does not implement
-(``experiments/layers.py:67-70``). A Pallas kernel path can be swapped in via
-``egc_tpu.ops.dispatch``.
+(``experiments/layers.py:67-70``). The convs reach it through
+``egc_tpu.ops.dispatch.conv_aggregate``.
 """
 
 from __future__ import annotations
@@ -83,19 +83,17 @@ def segment_mean(data, segment_ids, num_segments: int, *, mask=None,
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
 def _segment_max_raw(data, ids, num_segments, indices_are_sorted):
-    """``jax.ops.segment_max`` with a TPU-safe custom VJP.
+    """``jax.ops.segment_max`` with a single-gather custom VJP.
 
     Autodiff's scatter-max backward needs two SAME-INDEX gathers (the
-    segment maxima and the cotangent, both at ``ids``); XLA:TPU has been
-    observed to mis-merge same-index gather pairs under fusion (grossly
-    wrong gradients — measured rel. err 0.84 vs a CPU ground truth on the
-    hetero mean/max path, exact on CPU; same bug class as
-    ``_make_varstd_edges``'s notes and ``nn.conv.attention``'s single-
-    gather rule). The custom backward packs both operands into ONE gather.
+    segment maxima and the cotangent, both at ``ids``); the custom
+    backward packs both operands into ONE gather, so a compiler cannot
+    pair the two gathers wrongly (such a mis-merge was once seen on
+    another backend).
 
     Tie semantics: the FULL cotangent is routed to every achieving
-    element (the fused Pallas kernels' convention) instead of autodiff's
-    even split — identical on coalesced graphs with continuous features.
+    element instead of autodiff's even split — identical on coalesced
+    graphs with continuous features.
     """
     return jax.ops.segment_max(data, ids, num_segments=num_segments,
                                indices_are_sorted=indices_are_sorted)
@@ -146,14 +144,13 @@ def _var_from_moments(msq, m):
     """``E[x^2] - E[x]^2`` forced to ONE materialized value.
 
     The subtraction cancels catastrophically when var ~ 0 (e.g. a segment
-    of near-equal values). Without the barrier XLA:TPU may rematerialize
-    it per consumer with different FMA contraction, and the two copies can
-    round to OPPOSITE signs — the forward relu gate and the backward
-    relu' gate then disagree, which leaves one of the two large
+    of near-equal values). Without the barrier a compiler may
+    rematerialize it per consumer with different FMA contraction, and the
+    two copies can round to OPPOSITE signs — the forward relu gate and the
+    backward relu' gate then disagree, which leaves one of the two large
     (mutually-cancelling) VJP branches unopposed and inflates std
-    gradients by ~1/sqrt(eps) (measured: grads of 2566 vs a float64 truth
-    of 0.86 at var ~ 1e-6 on TPU; exact on CPU). The barrier pins every
-    consumer — sqrt, relu', both cotangent branches — to the same bits."""
+    gradients by ~1/sqrt(eps). The barrier pins every consumer — sqrt,
+    relu', both cotangent branches — to the same bits."""
     return jax.lax.optimization_barrier(msq - m * m)
 
 
@@ -170,14 +167,12 @@ def _make_varstd_edges(ids, counts, num_segments: int, include_self: bool,
 
     instead of autodiff's pair of branch cotangents (``2 x * c_sumsq`` and
     ``c_sum``), whose ~1/sqrt(eps)-amplified terms must cancel in fp32.
-    XLA:TPU can rematerialize ``var = msq - m*m`` per fusion with
-    different FMA contraction; at var ~ 0 the copies round to opposite
-    signs, the relu' gate of one branch closes while the other stays open,
-    and the uncancelled branch inflates the gradient by ~3 orders of
-    magnitude (measured 2566 vs a float64 truth of 0.86 — enough to blow
-    up real training). In the factored form a gate flip only toggles a
-    term bounded by ``~158 |x - m|``, which is tiny exactly where flips
-    can happen.
+    If ``var = msq - m*m`` is rematerialized per fusion with different FMA
+    contraction, at var ~ 0 the copies can round to opposite signs: the
+    relu' gate of one branch closes while the other stays open, and the
+    uncancelled branch inflates the gradient by orders of magnitude. In
+    the factored form a gate flip only toggles a term bounded by
+    ``~158 |x - m|``, which is tiny exactly where flips can happen.
 
     ``ids`` may contain out-of-range entries (masked edges); their
     cotangent contribution is forced to zero with a fill-gather.
@@ -219,12 +214,10 @@ def _make_varstd_edges(ids, counts, num_segments: int, include_self: bool,
         gate = (var > 0).astype(ct.dtype)
         dvar = ct * gate * (0.5 / out) if want_std else ct
         coeff = 2.0 * dvar / _bcast(denom0, ct.ndim)     # [N, ...]
-        # ONE gather for both per-receiver operands. Two separate gathers
-        # with the same index vector here get mis-merged by XLA:TPU under
-        # jit (measured: the (x - m) operand reads the coeff buffer,
-        # squaring the ~1/sqrt(eps) factor -> grads of 1.7e5 vs a float64
-        # truth of 0.19; eager mode and CPU are exact). Packing (m, coeff)
-        # into one array leaves a single gather op to fuse.
+        # ONE gather for both per-receiver operands: packing (m, coeff)
+        # into one array leaves a single gather op to fuse (two same-index
+        # gathers here were once mis-merged by a compiler, squaring the
+        # ~1/sqrt(eps) factor).
         pack = jnp.stack([m, coeff], axis=1)             # [N, 2, ...]
         ge = jnp.take(pack, ids_safe, axis=0)            # [E, 2, ...]
         ce = ge[:, 1] * _bcast(valid0, ct.ndim)

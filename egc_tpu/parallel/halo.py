@@ -15,25 +15,20 @@ exchange"); the reference has no distributed layer at all.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from jax import shard_map as _shard_map
 from jax.sharding import PartitionSpec as P
 
+from egc_tpu.nn.module import Module, Dense, Dropout
 from egc_tpu.graph.structure import Graph
 from egc_tpu.models.nets import ConvSpec, _torch_dense
 from egc_tpu.nn import MaskedBatchNorm
-from egc_tpu.train.state import TrainState
-
-try:
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
 
 
-class EGConvOverlap(nn.Module):
+class EGConvOverlap(Module):
     """EGConv with the halo exchange OVERLAPPED with the interior sweep.
 
     Parameter-tree compatible with ``egc_tpu.nn.conv.EGConv`` (same
@@ -59,7 +54,6 @@ class EGConvOverlap(nn.Module):
     use_bias: bool = True
     axis: str = "graph"
 
-    @nn.compact
     def __call__(self, g: Graph, x, send_idx, *, train: bool = False):
         import jax.numpy as jnp  # noqa: F811 (clarity)
         from egc_tpu.nn import init as einit
@@ -85,18 +79,18 @@ class EGConvOverlap(nn.Module):
         recv = recv.reshape(num_parts * halo, -1)
 
         # 2. owned-row compute (overlaps with the collective)
-        bases_dense = nn.Dense(B * L, use_bias=False,
-                               kernel_init=einit.glorot_per_base(B),
-                               name="bases")
+        bases_dense = Dense(B * L, use_bias=False,
+                            kernel_init=einit.glorot_per_base(B),
+                            name="bases")
         bases_o = bases_dense(x_own)
         fan_in = x.shape[-1]
-        w = nn.Dense(H * B * A, kernel_init=einit.torch_linear_kernel,
-                     bias_init=einit.torch_linear_bias(fan_in),
-                     name="comb")(x_own)
+        w = Dense(H * B * A, kernel_init=einit.torch_linear_kernel,
+                  bias_init=einit.torch_linear_bias(fan_in),
+                  name="comb")(x_own)
         if self.weighting == "softmax":
-            w = nn.softmax(w.reshape(n_local, H, B * A), axis=-1)
+            w = jax.nn.softmax(w.reshape(n_local, H, B * A), axis=-1)
         elif self.weighting == "sigmoid":
-            w = nn.sigmoid(w)
+            w = jax.nn.sigmoid(w)
         elif self.weighting == "hardtanh":
             w = jnp.clip(w, -1.0, 1.0)
         w = w.reshape(n_local, H, B, A)
@@ -127,7 +121,7 @@ class EGConvOverlap(nn.Module):
         from egc_tpu.nn.conv.egc import head_mix
         z = head_mix(w, y, n_local, H, B, A, L).reshape(n_local, O)
         if self.use_bias:
-            z = z + self.param("bias", nn.initializers.zeros, (O,),
+            z = z + self.param("bias", jax.nn.initializers.zeros, (O,),
                                jnp.float32)
         return jnp.pad(z, ((0, n_ext - n_local), (0, 0)))
 
@@ -146,7 +140,7 @@ def halo_refresh(x_ext, send_idx, axis: str = "graph"):
     return x_ext.at[n_local:].set(recv.reshape(num_parts * H, -1))
 
 
-class DistributedNodeClassifier(nn.Module):
+class DistributedNodeClassifier(Module):
     """ArxivNet/MagNet-shaped net over a partitioned graph.
 
     Identical math to the single-device nets (embed -> L x [conv BN ReLU
@@ -166,15 +160,9 @@ class DistributedNodeClassifier(nn.Module):
     e_interior: Optional[int] = None   # static interior-edge split from
     # PartitionPlan.e_interior; enables the overlapped EGC path
 
-    @nn.compact
     def __call__(self, g: Graph, send_idx, *, train: bool):
         refresh = lambda h: halo_refresh(h, send_idx, self.axis)  # noqa: E731
-        # When the partitioned graph carries stacked fused-kernel plans,
-        # the generic conv path (conv_aggregate -> Pallas) beats the
-        # overlapped-XLA schedule: the fused sweeps are ~5x faster than
-        # XLA while the overlap only hides ~2 ms of all_to_all.
-        overlap = (self.conv.kind == "egc" and self.e_interior is not None
-                   and getattr(g, "kernel_plan", None) is None)
+        overlap = self.conv.kind == "egc" and self.e_interior is not None
         x = g.nodes
         if self.use_embed:
             x = _torch_dense(self.hidden_dim, self.num_features,
@@ -201,18 +189,18 @@ class DistributedNodeClassifier(nn.Module):
                     g, x, train=train)
             x = MaskedBatchNorm(axis_name=self.axis)(
                 x, g.node_mask, use_running_average=not train)
-            x = nn.relu(x)
-            x = nn.Dropout(self.dropout, deterministic=not train)(x)
+            x = jax.nn.relu(x)
+            x = Dropout(self.dropout, deterministic=not train)(x)
             if self.residual:
                 x = x + identity
             if not overlap:
                 x = refresh(x)
         x = _torch_dense(self.num_classes, self.hidden_dim, name="out")(x)
-        return nn.log_softmax(x, axis=-1)
+        return jax.nn.log_softmax(x, axis=-1)
 
 
 def init_partitioned(model, mesh, graphs, send_idx, rng,
-                     axis: str = "graph", check_vma: bool = True):
+                     axis: str = "graph"):
     """Initialize a distributed model's variables inside the mesh context
     (the forward pass contains collectives, so a bare ``model.init`` outside
     shard_map would fail with an unbound axis name)."""
@@ -222,30 +210,19 @@ def init_partitioned(model, mesh, graphs, send_idx, rng,
         return model.init(rng, graph, sidx[0], train=False)
 
     fn = _shard_map(sharded, mesh=mesh,
-                    in_specs=(P(axis), P(axis)), out_specs=P(),
-                    check_vma=check_vma)
+                    in_specs=(P(axis), P(axis)), out_specs=P())
     return jax.jit(fn)(graphs, send_idx)
 
 
-def make_partitioned_train_step(model, mesh, axis: str = "graph",
-                                check_vma: bool = True):
+def make_partitioned_train_step(model, mesh, axis: str = "graph"):
     """Jitted partitioned full-graph train step.
 
     Inputs (stacked leading partition axis, sharded over ``axis``):
     graph (extended local Graph), send_idx [P, P, H], labels [P, n_local],
     train_mask [P, n_local]; state replicated. NLL loss over global train
-    nodes; gradients psum'd.
-
-    ``check_vma=False`` is REQUIRED when the graph carries fused kernel
-    plans (Pallas calls have no vma types). Transpose semantics differ in
-    the unchecked world: a psum INSIDE the differentiated loss
-    double-counts (its unchecked transpose is psum again), so this
-    variant differentiates the LOCAL unnormalized sum — under which the
-    sync-BN psums in the forward transpose correctly (classic pmap
-    convention: total objective = sum over devices, grads psum'd after) —
-    then psums the gradients and divides by the global mask count.
-    Numerically identical to the checked path
-    (tests/test_partition.py::test_partitioned_fused_*).
+    nodes. No explicit gradient psum: under shard_map's checked
+    (``check_vma``) transpose, the psum inside the loss already makes the
+    replicated parameters' gradients global (see ``parallel.dp``).
     """
 
     def sharded(state, graphs, send_idx, labels, train_mask, rng):
@@ -264,38 +241,23 @@ def make_partitioned_train_step(model, mesh, axis: str = "graph",
             n_local = y.shape[0]
             nll = -gather_label_scores(out[:n_local], y)
             m = mask.astype(out.dtype)
-            s_local = jnp.sum(nll * m)
-            c_local = jnp.sum(m)
-            if check_vma:
-                s = jax.lax.psum(s_local, axis)
-                c = jax.lax.psum(c_local, axis)
-                return s / jnp.maximum(c, 1.0), (mutated["batch_stats"],
-                                                 c_local)
-            return s_local, (mutated["batch_stats"], c_local)
+            s = jax.lax.psum(jnp.sum(nll * m), axis)
+            c = jax.lax.psum(jnp.sum(m), axis)
+            return s / jnp.maximum(c, 1.0), mutated["batch_stats"]
 
-        # NOTE: under check_vma=True no explicit grad psum — see dp.py
-        # note (the checked transpose inserts it); under check_vma=False
-        # the local-sum gradients are psum'd and normalized here.
-        (loss, (bs, c_local)), grads = jax.value_and_grad(
+        (loss, bs), grads = jax.value_and_grad(
             loss_wrapped, has_aux=True)(state.params)
-        if not check_vma:
-            c = jnp.maximum(jax.lax.psum(c_local, axis), 1.0)
-            grads = jax.tree.map(lambda g: jax.lax.psum(g, axis) / c,
-                                 grads)
-            loss = jax.lax.psum(loss, axis) / c
         return state.apply_gradients(grads, new_batch_stats=bs), loss
 
     step = _shard_map(
         sharded, mesh=mesh,
         in_specs=(P(), P(axis), P(axis), P(axis), P(axis), P()),
         out_specs=(P(), P()),
-        check_vma=check_vma,
     )
     return jax.jit(step)
 
 
-def make_partitioned_eval_step(model, mesh, axis: str = "graph",
-                               check_vma: bool = True):
+def make_partitioned_eval_step(model, mesh, axis: str = "graph"):
     """Returns per-partition log-probs [P, n_ext, C] (owned rows valid)."""
 
     def sharded(state, graphs, send_idx):
@@ -309,6 +271,5 @@ def make_partitioned_eval_step(model, mesh, axis: str = "graph",
         sharded, mesh=mesh,
         in_specs=(P(), P(axis), P(axis)),
         out_specs=P(axis),
-        check_vma=check_vma,
     )
     return jax.jit(step)

@@ -17,21 +17,17 @@ from typing import Dict
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from jax import shard_map as _shard_map
 import optax
 from jax.sharding import PartitionSpec as P
 
+from egc_tpu.nn.module import Module, Dropout
 from egc_tpu.graph.hetero import HeteroGraph
 from egc_tpu.nn.conv.hetero import REGConv, RGCNConv
 from egc_tpu.parallel.halo import halo_refresh
 
-try:
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
 
-
-class DistributedREGCNet(nn.Module):
+class DistributedREGCNet(Module):
     """REGCNet over a partitioned HeteroGraph: same layer stack, with a
     per-type halo refresh before the first conv and after every layer.
     Featureless-type features arrive pre-embedded in ``x_dict`` (the
@@ -47,7 +43,6 @@ class DistributedREGCNet(nn.Module):
     target_type: str = "paper"
     axis: str = "graph"
 
-    @nn.compact
     def __call__(self, hg: HeteroGraph, x_dict, send_idx: Dict[str, jnp.ndarray],
                  *, train: bool):
         refresh = lambda d: {t: halo_refresh(x, send_idx[t], self.axis)  # noqa: E731
@@ -58,12 +53,12 @@ class DistributedREGCNet(nn.Module):
                             num_bases=self.bases) if self.use_egc
                     else RGCNConv(self.hidden_dim))
             x_dict = conv(hg, x_dict, train=train)
-            x_dict = {t: nn.Dropout(self.dropout,
-                                    deterministic=not train)(nn.relu(x))
+            x_dict = {t: Dropout(self.dropout,
+                                 deterministic=not train)(jax.nn.relu(x))
                       for t, x in x_dict.items()}
             x_dict = refresh(x_dict)
         x_dict = RGCNConv(self.num_classes)(hg, x_dict, train=train)
-        return nn.log_softmax(x_dict[self.target_type], axis=-1)
+        return jax.nn.log_softmax(x_dict[self.target_type], axis=-1)
 
 
 def extend_local(x_local, n_ext: int):
@@ -75,7 +70,7 @@ def extend_local(x_local, n_ext: int):
 
 
 def init_hetero_partitioned(model, mesh, hg_stack, x_stack, send_idx, rng,
-                            axis: str = "graph", check_vma: bool = True):
+                            axis: str = "graph"):
     def sharded(hg_, x_, sidx_):
         hg = jax.tree.map(lambda a: a[0], hg_)
         x = {t: v[0] for t, v in x_.items()}
@@ -83,14 +78,12 @@ def init_hetero_partitioned(model, mesh, hg_stack, x_stack, send_idx, rng,
         return model.init(rng, hg, x, sidx, train=False)
 
     fn = _shard_map(sharded, mesh=mesh,
-                    in_specs=(P(axis), P(axis), P(axis)), out_specs=P(),
-                    check_vma=check_vma)
+                    in_specs=(P(axis), P(axis), P(axis)), out_specs=P())
     return jax.jit(fn)(hg_stack, x_stack, send_idx)
 
 
 def build_hetero_partitioned_steps(model, mesh, emb_tx, n_ext_map,
-                                   axis: str = "graph",
-                                   check_vma: bool = True):
+                                   axis: str = "graph"):
     """Returns (train_step, eval_step) jitted over ``mesh``.
 
     ``state`` (replicated) holds the conv/head parameters; ``emb`` /
@@ -100,14 +93,8 @@ def build_hetero_partitioned_steps(model, mesh, emb_tx, n_ext_map,
     optax leaf (including scalar step counts) carries the leading P axis
     the sharding specs expect. ``n_ext_map``: static {type: n_ext} for the
     embedding types (pads local rows to the extended layout in-step).
-    Under ``check_vma=True``, conv gradients are psum'd by the checked
-    transpose (replicated params) and embedding gradients stay local.
-    ``check_vma=False`` is required when the graph carries fused
-    per-relation kernel plans (Pallas has no vma types); the loss is then
-    the LOCAL unnormalized sum (a psum inside the differentiated loss
-    double-counts in the unchecked transpose — see
-    ``make_partitioned_train_step``), conv grads are psum'd explicitly,
-    and both grad sets are normalized by the global mask count.
+    Under shard_map's checked (``check_vma``) transpose, conv gradients
+    are psum'd (replicated params) and embedding gradients stay local.
     """
 
     def train_sharded(state, emb, emb_opt, hg_stack, x_stack, send_idx,
@@ -133,19 +120,12 @@ def build_hetero_partitioned_steps(model, mesh, emb_tx, n_ext_map,
             # float32 count regardless of out.dtype (a bf16 head would
             # lose integer exactness above 256)
             c_local = jnp.sum(mask.astype(jnp.float32))
-            if check_vma:
-                s = jax.lax.psum(s_local, axis)
-                c = jax.lax.psum(c_local, axis)
-                return s / jnp.maximum(c, 1.0), c_local
-            return s_local, c_local
+            s = jax.lax.psum(s_local, axis)
+            c = jax.lax.psum(c_local, axis)
+            return s / jnp.maximum(c, 1.0)
 
-        (loss, c_local), (gp, ge) = jax.value_and_grad(
-            loss_fn, argnums=(0, 1), has_aux=True)(state.params, emb_local)
-        if not check_vma:
-            c = jnp.maximum(jax.lax.psum(c_local, axis), 1.0)
-            gp = jax.tree.map(lambda g: jax.lax.psum(g, axis) / c, gp)
-            ge = jax.tree.map(lambda g: g / c, ge)
-            loss = jax.lax.psum(loss, axis) / c
+        loss, (gp, ge) = jax.value_and_grad(
+            loss_fn, argnums=(0, 1))(state.params, emb_local)
         new_state = state.apply_gradients(gp)
         upd, new_opt = emb_tx.update(ge, emb_opt_local, emb_local)
         new_emb = optax.apply_updates(emb_local, upd)
@@ -156,8 +136,7 @@ def build_hetero_partitioned_steps(model, mesh, emb_tx, n_ext_map,
         train_sharded, mesh=mesh,
         in_specs=(P(), P(axis), P(axis), P(axis), P(axis), P(axis),
                   P(axis), P(axis), P()),
-        out_specs=(P(), P(axis), P(axis), P()),
-        check_vma=check_vma)
+        out_specs=(P(), P(axis), P(axis), P()))
 
     def eval_sharded(state, emb, hg_stack, x_stack, send_idx):
         hg = jax.tree.map(lambda a: a[0], hg_stack)
@@ -172,7 +151,6 @@ def build_hetero_partitioned_steps(model, mesh, emb_tx, n_ext_map,
     evalf = _shard_map(
         eval_sharded, mesh=mesh,
         in_specs=(P(), P(axis), P(axis), P(axis), P(axis)),
-        out_specs=P(axis),
-        check_vma=check_vma)
+        out_specs=P(axis))
 
     return jax.jit(train), jax.jit(evalf)

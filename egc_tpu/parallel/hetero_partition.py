@@ -97,12 +97,10 @@ class HeteroPartitionPlan:
     types: Dict[str, TypePlan]
     rels: Dict[str, RelPlan]
 
-    def extended_hetero_graph(self, x_ext: Dict[str, np.ndarray],
-                              kernel_plans=None) -> HeteroGraph:
+    def extended_hetero_graph(self, x_ext: Dict[str, np.ndarray]
+                              ) -> HeteroGraph:
         """Stacked per-device HeteroGraph over extended per-type arrays
-        ``x_ext[t]: [P, n_ext_t, F_t]`` (halo rows refreshed on device).
-        ``kernel_plans``: stacked per-relation plans from
-        :meth:`build_kernel_plans`."""
+        ``x_ext[t]: [P, n_ext_t, F_t]`` (halo rows refreshed on device)."""
         P = self.num_parts
         node_mask = {}
         for t, tp in self.types.items():
@@ -115,34 +113,7 @@ class HeteroPartitionPlan:
             senders={k: r.senders_ext for k, r in self.rels.items()},
             receivers={k: r.receivers_loc for k, r in self.rels.items()},
             edge_mask={k: r.edge_mask for k, r in self.rels.items()},
-            kernel_plans=kernel_plans,
         )
-
-    def build_kernel_plans(self):
-        """Stacked per-device, per-relation bipartite fused-kernel plans
-        (each device slices its own inside shard_map; static geometry is
-        identical across devices by construction). Steps must then run
-        with ``check_vma=False`` — see parallel.hetero_halo."""
-        import jax
-        import jax.numpy as jnp
-        from egc_tpu.ops.dispatch import build_bipartite_kernel_plan
-
-        plans = {}
-        for key, rp in self.rels.items():
-            src, _, dst = split_rel_key(key)
-            sp, dp = self.types[src], self.types[dst]
-            # dst side covers the LOCAL space only: receivers are always
-            # owned rows (edges live at their destination owner), so the
-            # fused grid need not sweep halo dst rows — the conv zero-pads
-            # the sliced output up to n_ext (halo rows aggregate to zero
-            # on the XLA path too). 3x fewer dst blocks at mag-like halos.
-            per_dev = [build_bipartite_kernel_plan(
-                rp.senders_ext[p], rp.receivers_loc[p], sp.n_ext,
-                dp.n_local, edge_mask=rp.edge_mask[p],
-                keep_masked_edges=True)
-                for p in range(self.num_parts)]
-            plans[key] = jax.tree.map(lambda *xs: jnp.stack(xs), *per_dev)
-        return plans
 
 
 def partition_hetero(num_nodes: Dict[str, int],

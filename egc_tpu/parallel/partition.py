@@ -72,12 +72,9 @@ class PartitionPlan:
         out[self.node_gids[valid]] = local_values[valid]
         return out
 
-    def extended_graph(self, nodes_local: np.ndarray,
-                       kernel_plan=None) -> Graph:
+    def extended_graph(self, nodes_local: np.ndarray) -> Graph:
         """Per-partition Graph pytree (stacked leading axis P) over the
-        extended node array [n_local + P*H]. ``kernel_plan``: stacked
-        per-device plans from :meth:`build_kernel_plans` (fused Pallas
-        aggregation inside the shard_map steps)."""
+        extended node array [n_local + P*H]."""
         P, n_ext, e = self.num_parts, self.n_ext, self.e_local
         node_mask_ext = np.zeros((P, n_ext), bool)
         node_mask_ext[:, :self.n_local] = self.node_mask
@@ -95,36 +92,7 @@ class PartitionPlan:
             graph_mask=np.ones((P, 1), bool),
             edge_weight=self.sym_edge_w,
             self_weight=sym_self_ext,
-            kernel_plan=kernel_plan,
         )
-
-    def build_kernel_plans(self, *, attention: bool = False):
-        """Stacked per-device fused-kernel plans [P, ...] over the
-        extended node space — attach via ``extended_graph(...,
-        kernel_plan=...)`` and the conv layers' ``conv_aggregate`` runs
-        the fused Pallas sweeps inside ``shard_map`` (each device slices
-        its own plan; all static geometry — n_pad, grid, edge counts — is
-        identical across devices by construction, so stacking is safe).
-        NOTE: the steps must then be built with ``check_vma=False``
-        (Pallas calls do not carry vma types); see
-        ``make_partitioned_train_step``. Pass ``attention=True`` for
-        GAT/GATv2 shards: the fused attention wrappers row-pad inputs up
-        to ``plan.n_pad`` when the extended node count is smaller, so
-        partitioned attention rides the fused kernels too (gated by
-        tests/test_partition.py; ``exp/fullgraph.py`` wires it for the
-        gat/gatv2 conv kinds)."""
-        import jax
-        import jax.numpy as jnp
-        from egc_tpu.ops.dispatch import build_kernel_plan
-
-        plans = []
-        for p in range(self.num_parts):
-            ew = self.sym_edge_w[p] if self.sym_edge_w is not None else None
-            plans.append(build_kernel_plan(
-                self.senders_ext[p], self.receivers_loc[p], self.n_ext,
-                edge_mask=self.edge_mask[p], keep_masked_edges=True,
-                edge_weight=ew, attention=attention))
-        return jax.tree.map(lambda *xs: jnp.stack(xs), *plans)
 
 
 def _segmented_arange(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:

@@ -1,10 +1,9 @@
-"""Device-side loss helpers (TPU-friendly lowerings).
+"""Device-side loss helpers.
 
 The reference uses ``F.nll_loss`` / ``F.cross_entropy`` (e.g.
-``experiments/arxiv/configs.py``); the direct JAX transcription
-``take_along_axis(out, labels[:, None])`` lowers to a row-at-a-time
-gather on TPU — measured 1.8 ms per step on ogbn-arxiv-scale logits
-([172k, 40]) vs ~0.05 ms for the fused one-hot multiply-reduce below.
+``experiments/arxiv/configs.py``). The label score is taken with a one-hot
+multiply-reduce, which XLA fuses with its producer, instead of a
+``take_along_axis`` row gather.
 """
 
 from __future__ import annotations
@@ -31,8 +30,8 @@ def nll_scores(out: jnp.ndarray, labels: jnp.ndarray, *,
     ``log_probs=True``: scores are log-probabilities, nll = -score[y].
     ``log_probs=False``: scores are raw logits, nll = lse(out) - out[y] —
     mathematically identical but skips materializing the [N, C] log-prob
-    array and its cotangent (profiled ~8 ms/step at ogbn-mag scale; pair
-    with ``ArxivNet/MagNet(log_probs=False)``)."""
+    array and its cotangent (pair with
+    ``ArxivNet/MagNet(log_probs=False)``)."""
     s = gather_label_scores(out, labels)
     if log_probs:
         return -s

@@ -77,8 +77,8 @@ _split_acc_jit = jax.jit(_split_acc_compute)
 
 def split_accuracies(out, y, masks: dict) -> dict:
     """{split}_acc over log-prob rows in ONE jitted call + ONE device
-    read (per-op eager dispatch costs a host<->device round trip each —
-    ruinous through a remote tunnel, wasteful everywhere). The jitted
+    read (per-op eager dispatch costs a host<->device round trip each).
+    The jitted
     callable is module-global so repeated epochs hit the trace cache."""
     splits = ("train", "val", "test")
     vals = np.asarray(_split_acc_jit(out, y, *[masks[s] for s in splits]))

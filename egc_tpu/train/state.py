@@ -6,16 +6,17 @@ from typing import Any
 
 import jax
 import optax
-from flax import struct
+
+from egc_tpu.utils.pytree import pytree_dataclass, static_field
 
 
-@struct.dataclass
+@pytree_dataclass
 class TrainState:
     params: Any
     batch_stats: Any
     opt_state: Any
     step: int
-    tx: optax.GradientTransformation = struct.field(pytree_node=False)
+    tx: optax.GradientTransformation = static_field()
 
     @classmethod
     def create(cls, *, params, batch_stats, tx):

@@ -17,41 +17,3 @@ def profile_trace(log_dir, enabled: bool = True):
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     with jax.profiler.trace(str(log_dir)):
         yield
-
-
-def device_op_table(trace_dir):
-    """Parse the newest xplane in ``trace_dir`` into a per-op device
-    self-time table: [(op_name, self_time_us)] sorted descending.
-
-    Host-side xprof ``framework_op_stats`` parse (name col c[3], self-time
-    us c[7], device rows c[1] == "Device") — the recipe every per-op
-    profile script and PERFORMANCE.md number uses.
-    """
-    import glob
-    import json
-    import os
-
-    os.environ["PROTOCOL_BUFFERS_PYTHON_IMPLEMENTATION"] = "python"
-    from xprof.convert import raw_to_tool_data as rtd
-
-    xp = sorted(glob.glob(f"{trace_dir}/**/*.xplane.pb", recursive=True),
-                key=os.path.getmtime)
-    data, _ = rtd.xspace_to_tool_data([xp[-1]], "framework_op_stats",
-                                      {"tqx": "out:json"})
-    tables = json.loads(bytes(data))
-    tt = tables[0] if isinstance(tables, list) else tables["tables"][0]
-    dev = [(c[3], float(c[7] or 0.0))
-           for c in ([x.get("v") for x in r["c"]] for r in tt["rows"])
-           if c[1] == "Device"]
-    dev.sort(key=lambda kv: -kv[1])
-    return dev
-
-
-def print_op_table(trace_dir, top: int = 25):
-    dev = device_op_table(trace_dir)
-    total = sum(v for _, v in dev)
-    print(f"total device self-time: {total / 1e3:.1f} ms", flush=True)
-    for name, v in dev[:top]:
-        print(f"  {v/1e3:8.1f} ms {100*v/total:5.1f}%  {name[:84]}",
-              flush=True)
-    return total

@@ -5,7 +5,7 @@ The reference publishes pretrained checkpoints as torch ``.pt`` files
 "hparams": ...})``, reference ``experiments/exp_config.py:31-38``; restored
 by ``load_pretrained``, ``experiments/utils.py:69-79``). This module reads
 both torch serialization formats without torch so checkpoints can be ported
-into this framework's flax pytrees (see :mod:`egc_tpu.exp.weight_port`):
+into this framework's parameter pytrees (see :mod:`egc_tpu.exp.weight_port`):
 
 - the zip container (torch >= 1.6; the reference pins torch 1.11): a zipfile
   holding ``<name>/data.pkl`` (a pickle whose persistent ids reference

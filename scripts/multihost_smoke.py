@@ -1,6 +1,6 @@
-"""2-process ``jax.distributed`` smoke test — mesh-over-DCN bring-up.
+"""2-process ``jax.distributed`` smoke test — a multi-host rehearsal on CPU.
 
-Makes docs/SCALING.md's multi-host recipe executable without TPU pods: two
+Makes docs/SCALING.md's multi-host recipe executable on one machine: two
 OS processes each own 4 virtual CPU devices, ``jax.distributed.initialize``
 wires them into one 8-device runtime, and a global mesh runs
 (a) a psum sanity collective, (b) ONE data-parallel batched train step
@@ -28,7 +28,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-PORT = int(os.environ.get("EGC_TPU_SMOKE_PORT", "43219"))
+PORT = int(os.environ.get("EGC_SMOKE_PORT", "43219"))
 NPROC = 2
 LOCAL_DEVICES = 4
 
@@ -54,10 +54,7 @@ def worker(pid: int, nproc: int = NPROC, local_devices: int = LOCAL_DEVICES,
     devices = np.array(jax.devices()).reshape(nproc * local_devices)
     mesh = Mesh(devices, ("data",))
 
-    try:
-        from jax import shard_map as sm
-    except ImportError:
-        from jax.experimental.shard_map import shard_map as sm
+    from jax import shard_map as sm
 
     # (a) collective sanity: psum of ones over the global mesh
     def ones_psum(x):

@@ -8,7 +8,7 @@ DIR="${1:-./retrained_models}"
 
 eval_one() {
   local path="$1"; shift
-  if [ -f "${path}/final/run_0/checkpoint.msgpack" ]; then
+  if [ -f "${path}/final/run_0/checkpoint.npz" ]; then
     python main.py "${path}/final/run_0" "$@" --pretrained
   else
     echo "skip ${path} (no checkpoint)"

@@ -3,13 +3,12 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
 from egc_tpu.data import synthetic
 from egc_tpu.exp.hetero import RMagConfig
 from egc_tpu.exp.runner import run_trial
 from egc_tpu.graph.hetero import (
-    attach_hetero_kernel_plans, hetero_from_numpy, rel_key,
+    hetero_from_numpy, rel_key,
 )
 from egc_tpu.nn.conv.hetero import RGCNConv, REGConv
 
@@ -79,101 +78,6 @@ def test_regconv_shapes_and_accumulation(rng):
     g = jax.grad(loss)(variables)
     bases_g = np.asarray(g["params"]["bases"]["kernel"])
     assert np.abs(bases_g).sum() > 0
-
-
-@pytest.fixture
-def interpret_pallas(monkeypatch):
-    import jax.experimental.pallas as pl
-    import egc_tpu.ops.pallas.gather_reduce as gr
-
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(gr.pl, "pallas_call", patched)
-
-
-SMALL_GEOM = dict(fwd_block_rows=128, fwd_window_rows=256,
-                  bwd_block_rows=256, bwd_window_rows=128)
-
-
-def bipartite_graph(rng, n_src=150, n_dst=90, e=600, f=72):
-    s = rng.integers(0, n_src, e).astype(np.int32)
-    r = rng.integers(0, n_dst, e).astype(np.int32)
-    # coalesce: the fused max/min VJP routes full cotangents to every
-    # duplicate achieving edge (see ops.dispatch docstring)
-    s, r = np.unique(np.stack([s, r]), axis=1)
-    mask = rng.random(len(s)) > 0.3
-    x = rng.normal(size=(n_src, f)).astype(np.float32)
-    return x, s, r, mask
-
-
-def test_bipartite_fused_matches_xla(rng, interpret_pallas):
-    from egc_tpu.ops.dispatch import (
-        bipartite_multi_aggregate, build_bipartite_kernel_plan,
-    )
-    from egc_tpu.ops.segment import (
-        segment_max, segment_mean, segment_min, segment_sum,
-    )
-
-    x, s, r, mask = bipartite_graph(rng)
-    n_src, f = x.shape
-    n_dst = 90
-    plan = build_bipartite_kernel_plan(s, r, n_src, n_dst,
-                                       edge_mask=mask, **SMALL_GEOM)
-    aggrs = ("sum", "mean", "max", "min")
-    fns = {"sum": segment_sum, "mean": segment_mean,
-           "max": segment_max, "min": segment_min}
-
-    def fused(v):
-        return bipartite_multi_aggregate(v, plan, aggrs)[:n_dst]
-
-    def xla(v):
-        gathered = jnp.take(v, jnp.asarray(s), axis=0)
-        return jnp.stack(
-            [fns[a](gathered, jnp.asarray(r), n_dst,
-                    mask=jnp.asarray(mask)) for a in aggrs], axis=1)
-
-    xj = jnp.asarray(x)
-    np.testing.assert_allclose(np.asarray(fused(xj)), np.asarray(xla(xj)),
-                               rtol=1e-4, atol=1e-4)
-
-    proj = jnp.asarray(rng.normal(size=(n_dst, len(aggrs), f))
-                       .astype(np.float32))
-    g_f = jax.grad(lambda v: jnp.sum(fused(v) * proj))(xj)
-    g_x = jax.grad(lambda v: jnp.sum(xla(v) * proj))(xj)
-    np.testing.assert_allclose(np.asarray(g_f), np.asarray(g_x),
-                               rtol=1e-3, atol=1e-3)
-
-
-def test_regconv_kernel_plan_parity(rng, interpret_pallas, monkeypatch):
-    """REGConv/RGCNConv with attached per-relation plans (TPU dispatch)
-    must match the XLA segment path exactly — values and bases grads."""
-    nodes, edges = tiny_hetero(rng)
-    hg_plain = jax.tree.map(jnp.asarray, hetero_from_numpy(nodes, edges))
-    hg_plans = jax.tree.map(
-        jnp.asarray,
-        attach_hetero_kernel_plans(hetero_from_numpy(nodes, edges),
-                                   **SMALL_GEOM))
-    conv = REGConv(8, num_heads=2, num_bases=2)
-    x_dict = {t: hg_plain.nodes[t] for t in hg_plain.node_types}
-    variables = conv.init(jax.random.key(0), hg_plain, x_dict)
-
-    def loss(v, hg):
-        o = conv.apply(v, hg, x_dict)
-        return sum(jnp.sum(x ** 2) for x in o.values())
-
-    ref_l, ref_g = jax.value_and_grad(loss)(variables, hg_plain)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    got_l, got_g = jax.value_and_grad(loss)(variables, hg_plans)
-    np.testing.assert_allclose(float(got_l), float(ref_l), rtol=1e-4)
-    jax.tree.map(
-        lambda a, b: np.testing.assert_allclose(np.asarray(a),
-                                                np.asarray(b),
-                                                rtol=1e-3, atol=1e-4),
-        got_g["params"], ref_g["params"])
 
 
 def test_rmag_trains():

@@ -230,118 +230,6 @@ def test_partitioned_rmag_config_end_to_end():
     assert max(accs) > 0.5, accs
 
 
-# ---------------------------------------------------------------------------
-# Partitioned + FUSED per-relation kernels (stacked bipartite plans)
-# ---------------------------------------------------------------------------
-
-def test_hetero_partitioned_fused_matches_single_device(monkeypatch):
-    import jax.experimental.pallas as pl
-    import egc_tpu.ops.pallas.gather_reduce as gr
-
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(gr.pl, "pallas_call", patched)
-
-    raw, hg, plan = _setup(seed=7)
-    net, variables, featless = _single_device_ref(raw, hg)
-    g = jax.tree.map(jnp.asarray, hg)
-    ref = np.asarray(net.apply(variables, g, train=False))
-    n_paper = hg.num_nodes("paper")
-    y = np.zeros(n_paper, np.int32)
-    y[:len(raw["y"])] = raw["y"]
-    tmask = np.zeros(n_paper, bool)
-    tmask[raw["train_idx"]] = True
-
-    lr = 0.02
-    import optax
-    tx = optax.sgd(lr)
-
-    def ref_loss(params):
-        out = net.apply({"params": params}, g, train=True,
-                        rngs={"dropout": jax.random.key(4)})
-        nll = -jnp.take_along_axis(out, jnp.asarray(y)[:, None],
-                                   axis=1)[:, 0]
-        m = jnp.asarray(tmask).astype(out.dtype)
-        return jnp.sum(nll * m) / jnp.maximum(jnp.sum(m), 1.0)
-
-    ref_l, ref_g = jax.value_and_grad(ref_loss)(variables["params"])
-
-    dnet, dvars, x_stack, emb, hg_stack, send_idx = _distributed(
-        raw, hg, plan, variables, featless)
-    kplans = plan.build_kernel_plans()
-    hg_stack = hg_stack.replace(
-        kernel_plans=jax.tree.map(jnp.asarray, kplans))
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    mesh = make_mesh({"graph": NUM_DEV})
-    n_ext_map = {t: plan.types[t].n_ext for t in featless}
-    from egc_tpu.train.state import TrainState
-    state = TrainState.create(params=dvars["params"], batch_stats={},
-                              tx=tx)
-    emb_tx = optax.sgd(lr)
-    emb_opt = jax.vmap(emb_tx.init)(emb)
-    pp = plan.types["paper"]
-    y_loc = jnp.asarray(pp.scatter(y))
-    m_loc = jnp.asarray(pp.scatter(tmask))
-
-    train_step, eval_step = build_hetero_partitioned_steps(
-        dnet, mesh, emb_tx, n_ext_map, check_vma=False)
-
-    # forward (eval step) parity through the fused kernels
-    out = np.asarray(eval_step(state, emb, hg_stack, x_stack, send_idx))
-    got = pp.gather(out[:, :pp.n_local], n_paper)
-    valid = np.asarray(hg.node_mask["paper"])
-    np.testing.assert_allclose(got[valid], ref[valid], rtol=5e-4, atol=5e-4)
-
-    # one SGD step parity (loss + shared params + embedding rows)
-    new_state, new_emb, _, loss = train_step(
-        state, emb, emb_opt, hg_stack, x_stack, send_idx, y_loc, m_loc,
-        jax.random.key(4))
-    np.testing.assert_allclose(float(loss), float(ref_l), rtol=1e-5)
-    import optax as _optax
-    upd, _ = tx.update(ref_g, tx.init(variables["params"]),
-                       variables["params"])
-    ref_new = _optax.apply_updates(variables["params"], upd)
-    flat_ref = sorted(jax.tree_util.tree_leaves_with_path(
-        {k: v for k, v in ref_new.items() if not k.startswith("emb_")}),
-        key=lambda kv: str(kv[0]))
-    flat_got = sorted(jax.tree_util.tree_leaves_with_path(
-        dict(new_state.params)), key=lambda kv: str(kv[0]))
-    assert len(flat_ref) == len(flat_got)
-    for (kr, vr), (kg, vg) in zip(flat_ref, flat_got):
-        assert str(kr) == str(kg)
-        np.testing.assert_allclose(np.asarray(vg), np.asarray(vr),
-                                   rtol=5e-3, atol=1e-5, err_msg=str(kr))
-    for t in featless:
-        tp = plan.types[t]
-        got_e = tp.gather(np.asarray(new_emb[t]), hg.num_nodes(t))
-        want_e = np.asarray(ref_new[f"emb_{t}"])
-        valid_t = np.asarray(hg.node_mask[t])
-        np.testing.assert_allclose(got_e[valid_t], want_e[valid_t],
-                                   rtol=5e-3, atol=1e-5, err_msg=t)
-
-
-def test_hetero_kernel_plan_geometry_covers_extended_space():
-    """Regression for the n_ext>n_dst_pad crash: at realistic halo sizes
-    the fused output must still cover hg.num_nodes(dst) = n_ext rows."""
-    raw = synthetic.synthetic_rmag(num_paper=4000, num_author=2000,
-                                   num_inst=50, num_fos=100,
-                                   num_classes=6, num_features=8, seed=1)
-    hg = hetero_from_numpy(raw["nodes"], raw["edges"])
-    num_nodes = {t: hg.num_nodes(t) for t in hg.node_types}
-    plan = partition_hetero(num_nodes, raw["edges"], NUM_DEV)
-    kplans = plan.build_kernel_plans()
-    for key, kp in kplans.items():
-        _, _, dst = split_rel_key(key)
-        # LOCAL dst grid + conv-side zero padding must cover every local
-        # receiver row (the old bug: n_dst_pad < rows the conv sliced)
-        assert kp.n_dst_pad >= plan.types[dst].n_local + 1, key
-
-
 def test_partitioned_rmag_restore_roundtrip(tmp_path):
     """Checkpoint restore must round-trip the device-local embedding rows
     and their optimizer state (they live in state.batch_stats) and

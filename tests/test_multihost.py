@@ -30,7 +30,7 @@ def _run(args, env):
 def test_multihost_smoke_two_processes():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
-    env["EGC_TPU_SMOKE_PORT"] = "43911"   # avoid clashing with manual runs
+    env["EGC_SMOKE_PORT"] = "43911"   # avoid clashing with manual runs
     # the launcher/workers override platform + device count themselves.
     # Reference = the SAME DP step in one process owning all 8 virtual
     # devices (computed fresh, not a frozen constant, so a jax/XLA bump

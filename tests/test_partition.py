@@ -298,187 +298,3 @@ def test_partitioned_restore_roundtrip(tmp_path):
     # num_features=24 (not the 128 default): restore must be data-shaped
     assert got["val_acc"] == pytest.approx(ref["val_acc"], abs=1e-6)
     assert got["test_acc"] == pytest.approx(ref["test_acc"], abs=1e-6)
-
-
-# ---------------------------------------------------------------------------
-# Partitioned + FUSED kernels (stacked per-device plans, explicit-psum steps)
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def fused_partition_env(monkeypatch):
-    """Interpret-mode Pallas + forced 'tpu' backend so conv_aggregate takes
-    the fused branch inside shard_map on the CPU mesh."""
-    import jax.experimental.pallas as pl
-    import egc_tpu.ops.pallas.gather_reduce as gr
-    import egc_tpu.ops.pallas.attention as attn
-
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(gr.pl, "pallas_call", patched)
-    monkeypatch.setattr(attn.pl, "pallas_call", patched)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-
-def _fused_setup(aggrs=("symnorm", "max", "mean")):
-    raw = full_graph(seed=11, n=300, classes=5, feats=8)
-    n = raw["x"].shape[0]
-    conv = ConvSpec(kind="egc", heads=2, bases=2, aggrs=aggrs)
-    g = jax.tree.map(jnp.asarray, Graph.from_coo(
-        raw["x"], raw["senders"], raw["receivers"]))
-    net = ArxivNet(conv=conv, hidden_dim=16, num_layers=2, dropout=0.0,
-                   residual=True, num_features=8, num_classes=5)
-    variables = net.init(jax.random.key(0), g, train=False)
-
-    ew, sw = symnorm_weight(jnp.asarray(raw["senders"]),
-                            jnp.asarray(raw["receivers"]), n)
-    plan = partition_graph(raw["senders"], raw["receivers"], n, NUM_DEV,
-                           method="bfs", sym_edge_w=np.asarray(ew),
-                           sym_self_w=np.asarray(sw))
-    kplans = plan.build_kernel_plans(attention=False)
-    x_ext = np.zeros((NUM_DEV, plan.n_ext, 8), np.float32)
-    x_ext[:, :plan.n_local] = plan.scatter_nodes(raw["x"])
-    gl = jax.tree.map(jnp.asarray, plan.extended_graph(x_ext, kplans))
-    dnet = DistributedNodeClassifier(conv=conv, hidden_dim=16, num_layers=2,
-                                     dropout=0.0, residual=True,
-                                     num_features=8, num_classes=5,
-                                     e_interior=plan.e_interior)
-    return raw, n, g, net, variables, plan, gl, dnet
-
-
-def test_partitioned_fused_forward_matches_single_device(
-        fused_partition_env):
-    raw, n, g, net, variables, plan, gl, dnet = _fused_setup()
-    # reference on the XLA path (plan-free single-device graph)
-    ref = np.asarray(net.apply(variables, g, train=False))
-
-    mesh = make_mesh({"graph": NUM_DEV})
-    try:
-        from jax import shard_map as sm
-    except ImportError:
-        from jax.experimental.shard_map import shard_map as sm
-
-    def fwd(graphs, sidx):
-        graph = jax.tree.map(lambda a: a[0], graphs)
-        out = dnet.apply(variables, graph, sidx[0], train=False)
-        return out[None]
-
-    fn = jax.jit(sm(fwd, mesh=mesh, in_specs=(P("graph"), P("graph")),
-                    out_specs=P("graph"), check_vma=False))
-    out = np.asarray(fn(gl, jnp.asarray(plan.send_idx)))
-    got = plan.gather_nodes(out[:, :plan.n_local], n)
-    np.testing.assert_allclose(got, ref, rtol=5e-4, atol=5e-4)
-
-
-def test_partitioned_fused_train_step_matches_single_device(
-        fused_partition_env):
-    raw, n, g, net, variables, plan, gl, dnet = _fused_setup()
-    y = jnp.asarray(raw["y"])
-    tmask = np.zeros(n, bool)
-    tmask[raw["train_idx"]] = True
-
-    # SGD so params-after-one-step compare gradients directly (Adam's
-    # 1/sqrt(v) first-step normalization flips sign on ~0 gradients)
-    import optax
-    tx = optax.sgd(1e-2)
-
-    state = TrainState.create(params=variables["params"],
-                              batch_stats=variables["batch_stats"], tx=tx)
-    mesh = make_mesh({"graph": NUM_DEV})
-    step = make_partitioned_train_step(dnet, mesh, check_vma=False)
-    # dropout=0 and train=True BN differs from ref (train=False); compare
-    # via a custom eval-mode loss instead: reuse the train step but check
-    # the LOSS (train BN on full stats == single-device train BN only if
-    # ref also train=True). Simplest exact check: loss value with BN in
-    # training mode on both sides.
-    def ref_loss_train(params):
-        out, _ = net.apply({"params": params,
-                            "batch_stats": variables["batch_stats"]},
-                           g, train=True, rngs={"dropout": jax.random.key(0)},
-                           mutable=["batch_stats"])
-        nll = -jnp.take_along_axis(out, y[:, None], axis=1)[:, 0]
-        m = jnp.asarray(tmask).astype(out.dtype)
-        return jnp.sum(nll * m) / jnp.sum(m)
-
-    ref_lt, ref_gt = jax.value_and_grad(ref_loss_train)(variables["params"])
-    new_state, loss = step(state, gl, jnp.asarray(plan.send_idx),
-                           jnp.asarray(plan.scatter_nodes(
-                               np.asarray(y))),
-                           jnp.asarray(plan.scatter_nodes(tmask)),
-                           jax.random.key(0))
-    np.testing.assert_allclose(float(loss), float(ref_lt), rtol=1e-5)
-    # parameter update equals the single-device step on the psum'd grads
-    opt_state = tx.init(variables["params"])
-    upd, _ = tx.update(ref_gt, opt_state, variables["params"])
-    ref_new = optax.apply_updates(variables["params"], upd)
-    flat_ref = sorted(jax.tree_util.tree_leaves_with_path(ref_new),
-                      key=lambda kv: str(kv[0]))
-    flat_got = sorted(jax.tree_util.tree_leaves_with_path(new_state.params),
-                      key=lambda kv: str(kv[0]))
-    for (kr, vr), (kg, vg) in zip(flat_ref, flat_got):
-        np.testing.assert_allclose(np.asarray(vg), np.asarray(vr),
-                                   rtol=5e-3, atol=1e-5, err_msg=str(kr))
-
-
-def test_partitioned_fused_gat_forward_matches_single_device(
-        fused_partition_env):
-    """Fused ATTENTION kernels inside shard_map: the partitioned GAT
-    forward (attention plan layouts + row-padding to the plan size) must
-    match the single-device XLA reference."""
-    raw = full_graph(seed=21, n=300, classes=5, feats=8)
-    n = raw["x"].shape[0]
-    conv = ConvSpec(kind="gat", heads=2)
-    g = jax.tree.map(jnp.asarray, Graph.from_coo(
-        raw["x"], raw["senders"], raw["receivers"]))
-    net = ArxivNet(conv=conv, hidden_dim=16, num_layers=2, dropout=0.0,
-                   residual=True, num_features=8, num_classes=5)
-    variables = net.init(jax.random.key(0), g, train=False)
-    import egc_tpu.nn.conv.attention as attn_mod
-    # reference runs the XLA path: plan-free graph (the backend patch only
-    # affects the plan-gated branch)
-    ref = np.asarray(net.apply(variables, g, train=False))
-
-    plan = partition_graph(raw["senders"], raw["receivers"], n, NUM_DEV,
-                           method="bfs")
-    kplans = plan.build_kernel_plans(attention=True)
-    assert jax.tree.leaves(kplans.fwd_attn.senders)[0] is not None
-    x_ext = np.zeros((NUM_DEV, plan.n_ext, 8), np.float32)
-    x_ext[:, :plan.n_local] = plan.scatter_nodes(raw["x"])
-    gl = jax.tree.map(jnp.asarray, plan.extended_graph(x_ext, kplans))
-    dnet = DistributedNodeClassifier(conv=conv, hidden_dim=16, num_layers=2,
-                                     dropout=0.0, residual=True,
-                                     num_features=8, num_classes=5,
-                                     e_interior=plan.e_interior)
-    mesh = make_mesh({"graph": NUM_DEV})
-    try:
-        from jax import shard_map as sm
-    except ImportError:
-        from jax.experimental.shard_map import shard_map as sm
-
-    calls = []
-    orig_fused = attn_mod._fused_gat_softmax_sum
-
-    def spy(*a, **k):
-        calls.append(1)
-        return orig_fused(*a, **k)
-
-    import pytest as _pytest
-    mp = _pytest.MonkeyPatch()
-    mp.setattr(attn_mod, "_fused_gat_softmax_sum", spy)
-    try:
-        def fwd(graphs, sidx):
-            graph = jax.tree.map(lambda a: a[0], graphs)
-            out = dnet.apply(variables, graph, sidx[0], train=False)
-            return out[None]
-
-        fn = jax.jit(sm(fwd, mesh=mesh, in_specs=(P("graph"), P("graph")),
-                        out_specs=P("graph"), check_vma=False))
-        out = np.asarray(fn(gl, jnp.asarray(plan.send_idx)))
-    finally:
-        mp.undo()
-    assert calls, "fused attention branch did not engage"
-    got = plan.gather_nodes(out[:, :plan.n_local], n)
-    np.testing.assert_allclose(got, ref, rtol=5e-4, atol=5e-4)

@@ -13,6 +13,8 @@ pretrained-checkpoint importer uses, so a divergence here implicates either
 the layer math or the porting layout — both things this suite must gate.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -32,6 +34,16 @@ from egc_tpu.exp import weight_port as wp  # noqa: E402
 
 FWD = dict(rtol=1e-4, atol=1e-5)
 BWD = dict(rtol=5e-4, atol=2e-5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_tree():
+    """Every test here executes the reference's sources: skip (decided at
+    run time, before the module fixtures that load them) when their tree
+    is not on disk."""
+    if not os.path.isdir(pyg_shim.REFERENCE_ROOT):
+        pytest.skip(f"reference sources not found at "
+                    f"{pyg_shim.REFERENCE_ROOT}")
 
 
 @pytest.fixture(scope="module")

@@ -102,6 +102,8 @@ def test_sampled_mag_config_end_to_end():
 
 
 def test_sampled_loader_prefetch_matches_sync_and_plans_static():
+    """Prefetched batches equal the synchronous loader's, and every batch
+    has the same (budget-static) array shapes: one jit compilation."""
     raw = synthetic.synthetic_full_graph(num_nodes=600, avg_degree=10,
                                          num_classes=5, num_features=8,
                                          seed=4)
@@ -109,14 +111,14 @@ def test_sampled_loader_prefetch_matches_sync_and_plans_static():
     sampler = NeighborSampler(raw["senders"], raw["receivers"], n,
                               fanouts=(6, 3))
 
-    def mk(prefetch, plans):
+    def mk(prefetch):
         return SampledNodeLoader(sampler, raw["x"], raw["y"],
                                  raw["train_idx"], batch_size=32,
                                  shuffle=True, rng_seed=7,
-                                 kernel_plans=plans, prefetch=prefetch)
+                                 prefetch=prefetch)
 
-    sync = list(mk(0, True))
-    pre = list(mk(3, True))
+    sync = list(mk(0))
+    pre = list(mk(3))
     assert len(sync) == len(pre) > 1
     shapes = None
     for (g1, y1, m1), (g2, y2, m2) in zip(sync, pre):
@@ -125,13 +127,10 @@ def test_sampled_loader_prefetch_matches_sync_and_plans_static():
                                       np.asarray(g2.senders))
         np.testing.assert_array_equal(y1, y2)
         np.testing.assert_array_equal(m1, m2)
-        assert g1.kernel_plan is not None
-        # budget-static plan arrays: one jit compilation across batches
-        s = tuple(a.shape for a in jax.tree.leaves(g1.kernel_plan))
+        s = tuple(np.shape(a) for a in jax.tree.leaves(g1))
         if shapes is None:
             shapes = s
         assert s == shapes
-        assert g1.nodes.shape[0] % SampledNodeLoader.PLAN_BLOCK == 0
 
 
 def test_sampled_dp_training_learns():

@@ -185,7 +185,7 @@ def test_aggr_aliases():
 
 
 def test_segment_max_custom_vjp_matches_autodiff(rng):
-    """_segment_max_raw's packed-gather backward (the TPU-safe form — see
+    """_segment_max_raw's packed-gather backward (the single-gather form — see
     ops.segment docstring) must equal jax.ops.segment_max's autodiff on
     tie-free data, for 1-D and 2-D values and masked ids."""
     from egc_tpu.ops.segment import _segment_max_raw, segment_max

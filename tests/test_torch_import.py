@@ -145,8 +145,7 @@ def _roundtrip(dataset, kind, model, g, tmp_path, rng, legacy=False, **spec):
     variables = model.init(jax.random.PRNGKey(0), g, train=False)
     # randomize batch_stats so BN porting is non-trivial
     if "batch_stats" in variables:
-        from flax.core import unfreeze
-        variables = jax.tree.map(lambda x: x, unfreeze(variables))
+        variables = jax.tree.map(lambda x: x, dict(variables))
         stats = jax.tree.map(
             lambda x: jnp.asarray(
                 rng.uniform(0.5, 1.5, np.shape(x)).astype(np.float32)),
